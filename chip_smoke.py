@@ -8,7 +8,11 @@ for an H100) and `nvcc`.  It imports only the port
 (`fullycnnspeechenhancement_torch`), never JAX, and in order:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the CUDA kernel `ops/csrc/rced_stack.cu` for sm_90a;
+  2. builds both CUDA kernels for sm_90a, one `nvcc` per source, started
+     together (`ops/csrc/rced_stack.cu`, `ops/csrc/blocked_dw.cu`), and
+     prints their ptxas lines and build times;
+
+  The serving path (the fused inference kernel, `rced_stack`):
   3. builds two V2 inference engines at full width from one npz of random
      weights (torch.Generator seed 0, randomised BN state): one with
      `fused_inference=True` (the kernel path), one without (cuDNN layer by
@@ -25,11 +29,37 @@ for an H100) and `nvcc`.  It imports only the port
      inner stack at 64 x 8 s with CUDA events, the stages of one 8 s
      request, and each request's host time and device-busy time (from
      torch.profiler) through both engines;
-  8. prints a `kernels` JSON line, the card line again, and last the line
+
+  The training path (the blocked dW kernel, `blocked_dw`):
+  8. writes a corpus (512 speech-like utterances of 6.5-8.0 s, all in the
+     512-frame bucket, and 8 noise recordings of 30 s) and an INI with the
+     TPU training profile's settings in float32 (V2, batch 64,
+     steps_per_call 8, blocked_compute with fb 8, dw_pallas, host loader),
+     2 epochs; runs `cli.train.main(["--cfg", ini])` with the kernel's
+     launch count set to 0 just before and read just after: it must be 14
+     per logged step (16 steps); every loss finite, both epochs'
+     checkpoints written; the last checkpoint then serves one 6 s request
+     through a fused engine;
+  9. parity: two trainers from one numpy initial state on the same 4
+     batches of 64 x 8 s, with and without `dw_pallas` (cuDNN autograd):
+     per-step losses within rtol 1e-3, Adam's moments after each step
+     within 1e-3 of their global scale (a comparison of each step's
+     gradients), and the params' change over the 4 steps within 0.2 of
+     its norm;
+ 10. holds the kernel against its plain version for V2's 14 layer shapes
+     at B*T = 32,768 and at B=3, T=37 (rtol 1e-4, atol 1e-4 *
+     max|plain|), and the gradients through `blocked_freq_conv` and
+     through the blocked model against autograd of the raw conv;
+ 11. times the kernel over the 14 layers of one step, its plain version
+     and `torch.nn.grad.conv2d_weight` (cuDNN backward-filter, the
+     yardstick) with CUDA events, the whole train step with dw_pallas on
+     and off, the device-busy time of one steps_per_call=8 dispatch, and
+     which ops launch cuDNN's layout conversions in one train step;
+ 12. prints a `kernels` JSON line, the card line again, and last the line
      {"ok": true, "device": {...}}.
 
-Any failed phase raises, so the script exits non-zero and prints no last
-line.  Without CUDA it exits 1 at once.
+Each phase prints its wall time.  Any failed phase raises, so the script
+exits non-zero and prints no last line.  Without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -48,6 +78,23 @@ import torch
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 MAIN_TOL = 1e-4  # engine outputs: atol = MAIN_TOL * max|reference|
+SR = 8000
+# The training profile: batch 64 of 8 s utterances (the 512-frame bucket),
+# 8 batches per epoch, so one steps_per_call=8 dispatch per epoch.
+B_TRAIN = 64
+N_UTTS = 8 * B_TRAIN
+T_BUCKET = 512
+EPOCHS = 2
+PARITY_STEPS = 4
+# dw_pallas on against off: Adam moments against their global scale after
+# each step, and the params' change over the steps against its norm.
+PARITY_MOMENT_TOL = 1e-3
+PARITY_UPDATE_TOL = 0.2
+DW_TOL = 1e-4  # blocked_dw against plain: rtol, and atol = DW_TOL * max|plain|
+
+
+def phase(name: str, t0: float) -> None:
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s wall")
 
 
 def log(msg: str) -> None:
@@ -138,13 +185,14 @@ def inner_stack_cudnn(folded, x):
     return h
 
 
-def device_busy_ms(fn, reps: int):
+def device_busy_ms(fn, reps: int, top: int = 0):
     """(host ms, device-busy ms, device events) per call of `fn` over
     `reps` calls after one warm-up, under torch.profiler: busy is the
     summed duration of the device's own events (kernels, copies, memsets;
     one stream, so they do not overlap), host time the clock around the
     calls up to a synchronize.  Busy is None when the profiler saw no
-    device event."""
+    device event.  With `top`, logs the `top` device events by summed
+    time per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -160,7 +208,52 @@ def device_busy_ms(fn, reps: int):
     if not device:
         return host_ms, None, 0
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps
+    by_name = {}
+    for e in device:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"  device {us / 1e3 / reps:9.3f} ms ({100 * us / 1e3 / reps / busy_ms:4.1f}%) "
+            f"in {n / reps:5.0f} events: {name[:100]}")
     return host_ms, busy_ms, len(device) / reps
+
+
+def layout_conversions(fn, names=("nchwToNhwc", "nhwcToNchw"), top: int = 12):
+    """Profile one call of `fn` (after one warm-up) and attribute the
+    device kernels whose names contain one of `names` (cuDNN's layout
+    conversions) to the op that launched them, its first input's shape,
+    and the autograd node (or outermost op) around it.  Logs the `top`
+    sources by device time; returns (kernels, ms) per call, or None when
+    the profiler linked no kernel to an op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    tally, linked = {}, False
+    for e in prof.events():
+        linked = linked or bool(e.kernels)
+        hits = [k for k in e.kernels if any(n in k.name for n in names)]
+        if not hits:
+            continue
+        outer, node = e, None
+        while outer.cpu_parent is not None:
+            outer = outer.cpu_parent
+            if node is None and outer.name.startswith("autograd::engine::evaluate_function"):
+                node = outer.name.split(": ", 1)[-1]
+        shape = list(e.input_shapes[0]) if e.input_shapes else None
+        key = (node or outer.name, e.name, str(shape))
+        n, us = tally.get(key, (0, 0.0))
+        tally[key] = (n + len(hits), us + sum(k.duration for k in hits))
+    if not linked:
+        return None
+    count = sum(n for n, _ in tally.values())
+    ms = sum(us for _, us in tally.values()) / 1e3
+    for (node, op, shape), (n, us) in sorted(tally.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"  layout conversions: {n} kernels, {us / 1e3:.3f} ms from {op} on {shape} in {node}")
+    return count, ms
 
 
 def stack_work(packed, B, T):
@@ -172,18 +265,567 @@ def stack_work(packed, B, T):
     return flop, nbytes
 
 
+def run_serving(dev, tmp: str) -> dict:
+    """Phases 3-7: the serving path through the fused kernel.  Returns the
+    `rced_stack` entry of the `kernels` line."""
+    from fullycnnspeechenhancement_torch import Config, ModelConfig
+    from fullycnnspeechenhancement_torch.data.audio_io import read_wav, write_wav
+    from fullycnnspeechenhancement_torch.infer import InferenceEngine
+    from fullycnnspeechenhancement_torch.models import get_model
+    from fullycnnspeechenhancement_torch.models.blocks import conv2d_same
+    from fullycnnspeechenhancement_torch.ops import rced_stack
+    from fullycnnspeechenhancement_torch.train.checkpoint import export_params_npz
+
+    # -- 3. engines ----------------------------------------------------
+    model = get_model("FullyCNNV2")
+    params, bn = model.init(torch.Generator().manual_seed(0), device=dev)
+    bn = randomized_bn(bn, seed=0)
+    npz = os.path.join(tmp, "v2.npz")
+    export_params_npz(npz, params, bn)
+    fused = InferenceEngine(
+        Config(model=ModelConfig(net_work="FullyCNNV2", fused_inference=True)),
+        checkpoint=npz, device="cuda",
+    )
+    plain = InferenceEngine(
+        Config(model=ModelConfig(net_work="FullyCNNV2")), checkpoint=npz, device="cuda"
+    )
+
+    # -- 4. the main path ------------------------------------------------
+    rng = np.random.default_rng(0)
+    requests = [speech_like(rng, s) for s in (1.5, 6.0, 30.0)]
+    wav_in = os.path.join(tmp, "noisy.wav")
+    write_wav(wav_in, speech_like(rng, 3.0), 8000)
+    rced_stack.launches = 0
+    outs = []
+    for sig in requests:
+        t0 = time.perf_counter()
+        outs.append(fused.denoise_array(sig))
+        log(f"request {len(sig) / 8000:.1f} s: {1e3 * (time.perf_counter() - t0):.1f} ms (first call)")
+    out_path = fused.denoise(wav_in, save_path=os.path.join(tmp, "fused"))
+    launches = rced_stack.launches
+    log(f"main path: rced_stack launches {launches}")
+    if launches != 4:
+        raise AssertionError(f"rced_stack launched {launches} times on the main path, expected 4")
+
+    # -- 5. outputs against the unfused engine ---------------------------
+    for sig, got in zip(requests, outs):
+        ref = torch.as_tensor(plain.denoise_array(sig))
+        got = torch.as_tensor(got)
+        if got.shape != (len(sig),):
+            raise AssertionError(f"output length {got.shape} for {len(sig)} samples")
+        err = check_close(f"engine {len(sig)}", got, ref, 0.0, MAIN_TOL * ref.abs().max().item())
+        log(f"engine {len(sig) / 8000:.1f} s: fused vs cuDNN max abs err {err:.3e} "
+            f"(max|ref| {ref.abs().max().item():.3e})")
+    ref_path = plain.denoise(wav_in, save_path=os.path.join(tmp, "plain"))
+    got_w, _ = read_wav(out_path)
+    ref_w, _ = read_wav(ref_path)
+    src, _ = read_wav(wav_in)
+    if len(got_w) != len(src):
+        raise AssertionError(f"{out_path}: {len(got_w)} samples, input has {len(src)}")
+    # one int16 step on top: both files are rounded to 16-bit PCM
+    err = check_close("file", torch.as_tensor(got_w), torch.as_tensor(ref_w), 0.0,
+                      MAIN_TOL * np.abs(ref_w).max() + 1.0 / 32767)
+    log(f"file {os.path.basename(out_path)}: {len(got_w)} samples, max abs err {err:.3e}")
+
+    # -- 6. kernel against its plain version -----------------------------
+    max_err = 0.0
+    for name in ("FullyCNN", "FullyCNNV2", "FullyCNNV3"):
+        m = get_model(name)
+        p, s = m.init(torch.Generator().manual_seed(1), device=dev)
+        s = randomized_bn(s, seed=2)
+        pk = rced_stack.pack_inference_stack(m, p, s)
+        for T in (70, 45):
+            mag = torch.as_tensor(np.random.default_rng(T).random((2, T, 129), dtype=np.float32), device=dev)
+            y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
+            e = check_close(f"{name} T={T}", rced_stack.stack_forward(pk, y1),
+                            rced_stack.stack_forward_plain(pk, y1), 1e-4, 1e-5)
+            ref_apply = m.apply(p, s, mag[..., None])[0][..., 0]
+            check_close(f"{name} T={T} fused vs apply",
+                        rced_stack.fused_inference_forward(m, p, s, mag, packed=pk),
+                        ref_apply, 1e-4, 1e-5)
+            max_err = max(max_err, e)
+            log(f"kernel {name} B=2 T={T}: max abs err vs plain {e:.3e}")
+    pk = fused._packed
+    for n in sorted({len(x) for x in requests} | {len(src)}):
+        T = fused.ext.num_frames(fused._pad_len(n))
+        mag = torch.as_tensor(rng.random((1, T, 129), dtype=np.float32) * 10, device=dev)
+        y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
+        ref = rced_stack.stack_forward_plain(pk, y1)
+        e = check_close(f"V2 B=1 T={T}", rced_stack.stack_forward(pk, y1), ref,
+                        1e-4, 1e-5 * ref.abs().max().item())
+        max_err = max(max_err, e)
+        log(f"kernel V2 B=1 T={T}: max abs err vs plain {e:.3e}")
+
+    # -- 7. timings --------------------------------------------------------
+    B, T = 64, fused.ext.num_frames(8 * 8000)
+    mag = torch.as_tensor(np.random.default_rng(7).random((B, T, 129), dtype=np.float32), device=dev)
+    y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
+    got = rced_stack.stack_forward(pk, y1)
+    ref = rced_stack.stack_forward_plain(pk, y1)
+    e = check_close(f"V2 B={B} T={T}", got, ref, 1e-4, 1e-5 * ref.abs().max().item())
+    max_err = max(max_err, e)
+    folded = rced_stack.fold_bn_inference(fused.model, fused.params, fused.bn_state)
+    check_close(f"V2 B={B} T={T} cuDNN stack", inner_stack_cudnn(folded, y1), ref,
+                1e-4, 1e-5 * ref.abs().max().item())
+    del got, ref
+    kernel_ms = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
+    plain_ms = cuda_ms(lambda: rced_stack.stack_forward_plain(pk, y1), reps=3, warmup=1)
+    cudnn_ms = cuda_ms(lambda: inner_stack_cudnn(folded, y1), reps=10)
+    kernel_ms_2 = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
+    flop, nbytes = stack_work(pk, B, T)
+    t_ops, t_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    log(f"timing V2 inner stack at {B} x 8 s (T={T}): kernel {kernel_ms:.3f} / {kernel_ms_2:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, cuDNN layer by layer {cudnn_ms:.3f} ms")
+    log(f"bound: {flop:.4e} FLOP -> {t_ops:.3f} ms at 67 TFLOP/s; {nbytes:.4e} B -> "
+        f"{t_bytes:.3f} ms at 3.35 TB/s; kernel at {100 * bound_ms / kernel_ms:.1f}% of bound")
+
+    # stages of one 8 s request, fused engine
+    sig = requests[1]
+    n = len(sig)
+    wav = torch.zeros(1, fused._pad_len(n), device=dev)
+    wav[0, :n] = torch.as_tensor(sig, device=dev)
+    lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        mag1, pre, pim = fused.ext.magnitude_and_phase(wav, lengths)
+        y1r = torch.relu(conv2d_same(mag1[:, None], *pk.first[1:])).contiguous()
+        zr = rced_stack.stack_forward(pk, y1r)
+        pred = conv2d_same(zr, *pk.last[1:])[:, 0]
+        stages = {
+            "analysis": cuda_ms(lambda: fused.ext.magnitude_and_phase(wav, lengths), 20),
+            "layer1_cudnn": cuda_ms(lambda: conv2d_same(mag1[:, None], *pk.first[1:]), 20),
+            "inner_kernel": cuda_ms(lambda: rced_stack.stack_forward(pk, y1r), 20),
+            "last_cudnn": cuda_ms(lambda: conv2d_same(zr, *pk.last[1:]), 20),
+            "rebuild": cuda_ms(lambda: fused.reb(pred, pre, pim), 20),
+            "inner_cudnn_layerwise": cuda_ms(lambda: inner_stack_cudnn(folded, y1r), 20),
+        }
+    log("stages of one 8 s request (ms): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    # whole requests, untraced (host clock per call; each call ends in a
+    # copy to the host), then traced for the device-busy time
+    for label, eng in (("fused", fused), ("cudnn", plain)):
+        for sig in requests:
+            eng.denoise_array(sig)
+            times = []
+            for _ in range(40):
+                t0 = time.perf_counter()
+                eng.denoise_array(sig)
+                times.append((time.perf_counter() - t0) * 1e3)
+            med, p75, mean = np.median(times), np.percentile(times, 75), np.mean(times)
+            traced_ms, busy_ms, events = device_busy_ms(lambda: eng.denoise_array(sig), reps=20)
+            busy = "device busy not measured" if busy_ms is None else (
+                f"device busy {busy_ms:.3f} ms in {events:.0f} device events, "
+                f"idle share {1 - busy_ms / mean:.3f}")
+            log(f"request {label} {len(sig) / 8000:.1f} s: host ms median {med:.3f} p75 {p75:.3f} "
+                f"mean {mean:.3f} (n=40), {len(sig) / 8000 / med * 1e3:.1f} audio-s/s; "
+                f"traced {traced_ms:.3f} ms, {busy}")
+
+    return {
+        "name": "rced_stack",
+        "route": "cuda",
+        "source": "fullycnnspeechenhancement_torch/ops/csrc/rced_stack.cu",
+        "replaces": "fullycnnspeechenhancement_tpu/ops/pallas_rced.py:135",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        # No single PyTorch call computes the stack; the cuDNN
+        # layer-by-layer stack (14 convs plus adds) is its own key.
+        "library_ms": None,
+        "cudnn_stack_ms": cudnn_ms,
+    }
+
+
+# -- the training path ---------------------------------------------------
+
+
+def noise_like(rng, seconds, sr=SR):
+    """White noise through a one-pole filter of random colour, under a slow
+    level wander."""
+    from scipy.signal import lfilter
+
+    n = int(seconds * sr)
+    colored = lfilter([1.0], [1.0, -rng.uniform(-0.9, 0.95)], rng.standard_normal(n))
+    colored *= 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.05, 0.3) * np.arange(n) / sr)
+    return (0.1 * colored / np.abs(colored).max()).astype(np.float32)
+
+
+def write_corpus(root: str, rng) -> dict:
+    """N_UTTS speech-like clean utterances of 6.5-8.0 s (all in the
+    512-frame bucket), 8 noise recordings of 30 s, and their manifests."""
+    from fullycnnspeechenhancement_torch.data import write_manifest, write_wav
+
+    os.makedirs(root, exist_ok=True)
+    clean, noise = [], []
+    for i in range(N_UTTS):
+        sig = speech_like(rng, rng.uniform(6.5, 8.0))
+        path = os.path.join(root, f"clean_{i}.wav")
+        write_wav(path, sig, SR)
+        clean.append({"audio_filepath": path, "duration": len(sig) / SR})
+    for i in range(8):
+        sig = noise_like(rng, 30.0)
+        path = os.path.join(root, f"noise_{i}.wav")
+        write_wav(path, sig, SR)
+        noise.append({"audio_filepath": path, "duration": len(sig) / SR})
+    paths = {"clean": os.path.join(root, "train.clean"), "noise": os.path.join(root, "train.noise")}
+    write_manifest(paths["clean"], clean)
+    write_manifest(paths["noise"], noise)
+    return paths
+
+
+def write_train_ini(path: str, root: str, corpus: dict, dw_pallas: bool = True,
+                    base_checkpoint: str = "") -> str:
+    """The TPU training profile (work/aishell_1/cfg/fully_cnn_train_tpu.cfg)
+    in float32, with dw_pallas, the host loader, no validation manifest,
+    EPOCHS epochs and paths under `root`."""
+    with open(path, "w") as f:
+        f.write(
+            "[training]\n"
+            f"epochs={EPOCHS}\nbatch_size={B_TRAIN}\nlr=0.0015\nwarmup_steps=10000\n"
+            f"continue_train={not base_checkpoint}\n"
+            f"checkpoints_path={root}/checkpoints\nbase_checkpoint_file={base_checkpoint}\n"
+            f"num_iter_print=50\nlog_dir={root}/log\nsteps_per_call=8\n"
+            "[model]\nnet_arch=RCED\nnet_work=FullyCNNV2\ncompute_dtype=float32\n"
+            f"blocked_compute=True\nblocked_fb=8\ndw_pallas={dw_pallas}\n"
+            f"[data]\ntrain_manifest_path={corpus['clean']}\n"
+            f"train_noise_manifest={corpus['noise']}\n"
+            "snr=0\nsample_rate=8000\nwindow_ms=32\nstride_ms=16\nuse_device_cache=False\n"
+        )
+    return path
+
+
+def numpy_init(model, seed: int):
+    """(params, bn_state) of `model` from numpy: Glorot-range OIHW kernels,
+    small biases and BN affine, randomised BN statistics."""
+    rng = np.random.default_rng(seed)
+    params, bn, ch = {}, {}, 1
+    for spec in model.layers:
+        kh, kw = spec.kernel
+        lim = np.sqrt(6.0 / (kh * kw * (ch + spec.out_ch)))
+        p = {"w": rng.uniform(-lim, lim, (spec.out_ch, ch, kh, kw)),
+             "b": 0.1 * rng.standard_normal(spec.out_ch)}
+        if spec.use_norm:
+            p["gamma"] = 1 + 0.1 * rng.standard_normal(spec.out_ch)
+            p["beta"] = 0.1 * rng.standard_normal(spec.out_ch)
+            bn[spec.name] = {"mean": rng.random(spec.out_ch), "var": 1 + rng.random(spec.out_ch)}
+        params[spec.name] = p
+        ch = spec.out_ch
+    as_t = lambda d: {k: torch.tensor(v, dtype=torch.float32) for k, v in d.items()}  # noqa: E731
+    return {n: as_t(p) for n, p in params.items()}, {n: as_t(s) for n, s in bn.items()}
+
+
+def flat_leaves(tree):
+    """{(layer, leaf): float64 host array} of a params-shaped tree."""
+    return {(n, k): v.detach().double().cpu().numpy() for n, d in tree.items() for k, v in d.items()}
+
+
+def global_err(got, ref):
+    """max |got - ref| over all leaves over max |ref| over all leaves: a
+    global scale, because the biases under training-mode BN have gradients
+    that cancel analytically and a per-leaf scale would blow their rounding
+    noise up."""
+    scale = max(np.abs(v).max() for v in ref.values())
+    return max(np.abs(got[k] - ref[k]).max() for k in ref) / scale
+
+
+def update_err(after, ref_after, before):
+    """|d - d_ref| / |d_ref| for the params' change d = after - before, all
+    leaves as one vector: 1 for steps that leave the params where they
+    were, 2 for a sign-flipped update."""
+    keys = sorted(ref_after)
+    d = np.concatenate([(after[k] - before[k]).ravel() for k in keys])
+    d_ref = np.concatenate([(ref_after[k] - before[k]).ravel() for k in keys])
+    return float(np.linalg.norm(d - d_ref) / np.linalg.norm(d_ref))
+
+
+def dw_layer_shapes(model, fb: int = 8):
+    """(name, Ci, Co) of the model's inner (1, k) layers in blocked form."""
+    shapes, cin = [], model.layers[0].out_ch
+    for spec in model.layers[1:-1]:
+        shapes.append((spec.name, fb * cin, fb * spec.out_ch))
+        cin = spec.out_ch
+    return shapes
+
+
+def dw_work(shapes, rows: int, nb: int, kb: int, dc: int):
+    """(FLOP, bytes) the dW contractions of `shapes` over `rows` rows need:
+    tap d pairs only the NB - |d - dc| blocks whose shifted z block is real
+    (the others meet the zero halo), z and dy are read once and dW written
+    once, per layer."""
+    pairs = sum(max(0, nb - abs(d - dc)) for d in range(kb))
+    flop = sum(2.0 * rows * pairs * ci * co for _, ci, co in shapes)
+    nbytes = sum(4.0 * (rows * nb * (ci + co) + kb * ci * co) for _, ci, co in shapes)
+    return flop, nbytes
+
+
+def run_training(dev, tmp: str) -> dict:
+    """Phases 8-11: the training path through the dW kernel.  Returns the
+    `blocked_dw` entry of the `kernels` line."""
+    from fullycnnspeechenhancement_torch import Config, ModelConfig, load_ini_config
+    from fullycnnspeechenhancement_torch.cli import train as train_cli
+    from fullycnnspeechenhancement_torch.infer import InferenceEngine
+    from fullycnnspeechenhancement_torch.models import get_model
+    from fullycnnspeechenhancement_torch.models.blocked import _block_index_map, apply_blocked
+    from fullycnnspeechenhancement_torch.ops import blocked_dw
+    from fullycnnspeechenhancement_torch.train.checkpoint import export_params_npz
+    from fullycnnspeechenhancement_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(1)
+    model = get_model("FullyCNNV2")
+    # the inner (1, k) layers, whose dW the kernel computes: 14 for V2
+    n_dw = sum(1 for spec in model.layers if spec.kernel[0] == 1 and spec.kernel[1] < 129)
+
+    # -- 8. the training main path ------------------------------------------
+    t0 = time.perf_counter()
+    corpus = write_corpus(os.path.join(tmp, "corpus"), rng)
+    log(f"corpus: {N_UTTS} utterances and 8 noise recordings in {time.perf_counter() - t0:.1f} s")
+    root = os.path.join(tmp, "train")
+    ini = write_train_ini(os.path.join(tmp, "train.cfg"), root, corpus)
+    t0 = time.perf_counter()
+    blocked_dw.launches = 0
+    trainer = train_cli.main(["--cfg", ini])
+    torch.cuda.synchronize()
+    launches = blocked_dw.launches
+    main_s = time.perf_counter() - t0
+    run_dir = trainer.ckpt.dir
+    with open(os.path.join(root, "log", "scalars_RCED_FullyCNNV2.jsonl")) as f:
+        rows = [json.loads(line) for line in f if '"loss"' in line]
+    steps = len(rows)
+    log(f"training main path: {steps} steps in {main_s:.1f} s, blocked_dw launches {launches}, "
+        f"losses {[round(r['loss'], 3) for r in rows]}")
+    if steps != EPOCHS * N_UTTS // B_TRAIN or [r["step"] for r in rows] != list(range(steps)):
+        raise AssertionError(f"logged steps {[r['step'] for r in rows]}, expected {EPOCHS * N_UTTS // B_TRAIN}")
+    if launches != n_dw * steps:
+        raise AssertionError(f"blocked_dw launched {launches} times in {steps} steps, expected {n_dw * steps}")
+    if not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError("a logged loss is not finite")
+    files = sorted(os.listdir(run_dir))
+    if files != [f"epoch_{e}.pt" for e in range(EPOCHS)]:
+        raise AssertionError(f"checkpoints {files} in {run_dir}")
+    last = os.path.join(run_dir, f"epoch_{EPOCHS - 1}.pt")
+    engines = [
+        InferenceEngine(Config(model=ModelConfig(net_work="FullyCNNV2", fused_inference=fused)),
+                        checkpoint=last, device="cuda")
+        for fused in (True, False)
+    ]
+    sig = speech_like(rng, 6.0)
+    out, ref = (torch.as_tensor(e.denoise_array(sig)) for e in engines)
+    err = check_close("served from the checkpoint", out, ref, 0.0, MAIN_TOL * ref.abs().max().item())
+    if not torch.equal(engines[0].params["decode_4"]["w"], trainer.state.params["decode_4"]["w"].detach()):
+        raise AssertionError("the checkpoint's weights differ from the trainer's")
+    log(f"checkpoint {os.path.basename(last)} served 6 s: fused vs cuDNN max abs err {err:.3e}")
+    phase("training main path", t0)
+
+    # -- 9. parity: dw_pallas on and off from one numpy state ---------------
+    t0 = time.perf_counter()
+    params, bn = numpy_init(model, seed=3)
+    npz = os.path.join(tmp, "parity_init.npz")
+    export_params_npz(npz, params, bn)
+    loader, _ = train_cli.build_loaders(load_ini_config(ini), 4)
+    loader.set_epoch(0)
+    batches = list(loader)
+    trainers, losses, moments = {}, {}, {}
+    p_before = flat_leaves(params)
+    for dw in (True, False):
+        cfg = load_ini_config(write_train_ini(
+            os.path.join(tmp, f"parity_{dw}.cfg"), os.path.join(tmp, f"parity_{dw}"), corpus,
+            dw_pallas=dw, base_checkpoint=npz,
+        ))
+        tr = Trainer(cfg, device="cuda")
+        losses[dw], moments[dw] = [], []
+        for b in batches[:PARITY_STEPS]:
+            tr.state, m = tr._step(tr.state, tr._prep_single(b))
+            losses[dw].append(m["loss"])
+            moments[dw].append({name: flat_leaves(getattr(tr.state.opt_state, name))
+                                for name in ("mu", "nu")})
+        losses[dw] = torch.stack(losses[dw]).cpu().numpy()
+        trainers[dw] = tr
+    log(f"parity losses dw_pallas on {losses[True].tolist()} off {losses[False].tolist()}")
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-3)
+    # Each step's Adam moments fold that step's gradient in: held against
+    # their global scale after every step, they compare the gradients.
+    for k in range(PARITY_STEPS):
+        errs = {m: global_err(moments[True][k][m], moments[False][k][m]) for m in ("mu", "nu")}
+        log(f"parity step {k}: Adam mu off by {errs['mu']:.3e}, nu by {errs['nu']:.3e} "
+            f"of their global scale")
+        if max(errs.values()) > PARITY_MOMENT_TOL:
+            raise AssertionError(f"parity step {k}: moments differ by {errs} of their scale")
+    after = {dw: flat_leaves(trainers[dw].state.params) for dw in (True, False)}
+    err = update_err(after[True], after[False], p_before)
+    log(f"parity params after {PARITY_STEPS} steps: their change differs by {err:.3e} of its norm")
+    if err > PARITY_UPDATE_TOL:
+        raise AssertionError(f"parity: the param update differs by {err:.3e} of its norm")
+    phase("parity", t0)
+
+    # -- 10. the kernel against its plain version ----------------------------
+    t0 = time.perf_counter()
+    J, dc = _block_index_map(5, 8)
+    kb = J.shape[0]
+    if any(_block_index_map(spec.kernel[1], 8)[0].shape[0] != kb for spec in model.layers[1:-1]):
+        raise AssertionError("V2's inner layers do not share one KB at fb=8")
+    nb = -(-129 // 8)
+    shapes = dw_layer_shapes(model)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    max_err = 0.0
+    for B, T in ((B_TRAIN, T_BUCKET), (3, 37)):
+        for name, ci, co in shapes:
+            z = torch.randn(B, T, nb, ci, device=dev, generator=gen)
+            dy = torch.randn(B, T, nb, co, device=dev, generator=gen)
+            got = blocked_dw.blocked_dw(z, dy, kb, dc)
+            ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
+            e = check_close(f"blocked_dw {name} B={B} T={T}", got, ref, DW_TOL,
+                            DW_TOL * ref.abs().max().item())
+            max_err = max(max_err, e)
+            # no atomics: a second launch repeats the first bit for bit
+            if not torch.equal(blocked_dw.blocked_dw(z, dy, kb, dc), got):
+                raise AssertionError(f"blocked_dw {name} B={B} T={T}: a second launch differs")
+        log(f"blocked_dw vs plain, 14 layers at B={B} T={T}: max abs err {max_err:.3e}, "
+            f"each launch repeated bit for bit")
+    # the Function against autograd of the raw conv (tests/test_pallas_dw.py:48-50)
+    z0 = torch.randn(2, 9, 5, 24, device=dev, generator=gen)
+    w0 = 0.1 * torch.randn(1, 4, 24, 16, device=dev, generator=gen)
+    g = torch.randn(2, 9, 5, 16, device=dev, generator=gen)
+    grads = []
+    for fn in (lambda z, w: blocked_dw.blocked_freq_conv(z, w, 2),
+               lambda z, w: blocked_dw.conv_nhwc(z, w, ((0, 0), (2, 1)))):
+        z, w = z0.clone().requires_grad_(), w0.clone().requires_grad_()
+        (fn(z, w) * g).sum().backward()
+        grads.append((z.grad, w.grad))
+    check_close("Function dz", grads[0][0], grads[1][0], 1e-5, 1e-5)
+    check_close("Function dW", grads[0][1], grads[1][1], 1e-5, 1e-4)
+    # the blocked model with and without the Function, normalised by the
+    # global gradient scale (tests/test_pallas_dw.py:144-156)
+    params, bn = numpy_init(model, seed=4)
+    x = torch.randn(2, 12, 129, 1, device=dev, generator=gen)
+    model_grads = []
+    for dw in (True, False):
+        p = {n: {k: v.to(dev).requires_grad_() for k, v in d.items()} for n, d in params.items()}
+        s = {n: {k: v.to(dev) for k, v in d.items()} for n, d in bn.items()}
+        y, _ = apply_blocked(model, p, s, x, is_training=True, dw_pallas=dw)
+        torch.square(y).sum().backward()
+        model_grads.append({(n, k): v.grad for n, d in p.items() for k, v in d.items()})
+    gscale = max(v.abs().max().item() for v in model_grads[1].values())
+    worst = max(check_close(f"model grad {key}", model_grads[0][key] / gscale,
+                            model_grads[1][key] / gscale, 1e-5, 1e-6)
+                for key in model_grads[1])
+    log(f"gradients: Function and blocked model match autograd (worst {worst:.3e} of the gradient scale)")
+    phase("dw kernel checks", t0)
+
+    # -- 11. timings -----------------------------------------------------------
+    t0 = time.perf_counter()
+    rows_full = B_TRAIN * T_BUCKET
+    k_ms = p_ms = lib_ms = 0.0
+    for name, ci, co in shapes:
+        z = torch.randn(B_TRAIN, T_BUCKET, nb, ci, device=dev, generator=gen)
+        dy = torch.randn(B_TRAIN, T_BUCKET, nb, co, device=dev, generator=gen)
+        zpad = torch.nn.functional.pad(z.permute(0, 3, 1, 2), (dc, kb - 1 - dc, 0, 0))
+        go = dy.permute(0, 3, 1, 2)
+        lib = torch.nn.grad.conv2d_weight(zpad, (co, ci, 1, kb), go)
+        got = blocked_dw.blocked_dw(z, dy, kb, dc)
+        check_close(f"conv2d_weight {name}", lib, got.permute(3, 2, 0, 1), DW_TOL,
+                    DW_TOL * got.abs().max().item())
+        layer_k = cuda_ms(lambda: blocked_dw.blocked_dw(z, dy, kb, dc), reps=10)
+        layer_p = cuda_ms(lambda: blocked_dw.blocked_dw_plain(z, dy, kb, dc), reps=2, warmup=1)
+        layer_lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(zpad, (co, ci, 1, kb), go), reps=10)
+        log(f"  {name} Ci={ci} Co={co}: kernel {layer_k:.3f} ms, plain {layer_p:.3f} ms, "
+            f"conv2d_weight {layer_lib:.3f} ms")
+        k_ms, p_ms, lib_ms = k_ms + layer_k, p_ms + layer_p, lib_ms + layer_lib
+        del z, dy, zpad, go, lib, got
+    flop, nbytes = dw_work(shapes, rows_full, nb, kb, dc)
+    t_ops, t_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    log(f"timing blocked_dw over V2's 14 layers at {B_TRAIN} x 8 s (B*T={rows_full}): kernel {k_ms:.3f} ms, "
+        f"plain {p_ms:.3f} ms, conv2d_weight (cuDNN) {lib_ms:.3f} ms")
+    log(f"bound: {flop:.4e} FLOP -> {t_ops:.3f} ms at 67 TFLOP/s; {nbytes:.4e} B -> {t_bytes:.3f} ms "
+        f"at 3.35 TB/s; kernel at {100 * bound_ms / k_ms:.1f}% of bound")
+
+    # whole train steps, dw_pallas on and off in turns (on, off, off, on)
+    audio_s = float(sum(b.lengths.sum() for b in batches[:1])) / SR
+    payload = {dw: trainers[dw]._prep_single(batches[0]) for dw in (True, False)}
+    step_ms = {True: [], False: []}
+    for dw in (True, False, False, True):
+        tr = trainers[dw]
+        tr.state, _ = tr._step(tr.state, payload[dw])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            tr.state, _ = tr._step(tr.state, payload[dw])
+        torch.cuda.synchronize()
+        step_ms[dw].append((time.perf_counter() - t1) * 1e3 / 3)
+    for dw in (True, False):
+        ms = float(np.mean(step_ms[dw]))
+        log(f"train step {B_TRAIN} x 8 s, dw_pallas={dw}: {step_ms[dw][0]:.2f} / {step_ms[dw][1]:.2f} ms "
+            f"(mean {ms:.2f} ms, {audio_s / ms * 1e3:.1f} audio-s/s)")
+    # one steps_per_call=8 dispatch under the profiler
+    tr = trainers[True]
+    stacked = tr._prep_multi(batches[:8])
+    dispatch_audio = float(sum(b.lengths.sum() for b in batches[:8])) / SR
+
+    def dispatch():
+        tr.state, packed = tr._multi_step(tr.state, stacked)
+        return packed
+
+    host_ms, busy_ms, events = device_busy_ms(dispatch, reps=2, top=15)
+    busy = "device busy not measured" if busy_ms is None else (
+        f"device busy {busy_ms:.2f} ms in {events:.0f} device events, idle share {1 - busy_ms / host_ms:.3f}")
+    log(f"one steps_per_call=8 dispatch (8 x {B_TRAIN} x 8 s): host {host_ms:.2f} ms traced, "
+        f"{dispatch_audio / host_ms * 1e3:.1f} audio-s/s, {busy}")
+    # where cuDNN converts layouts inside one train step
+    conv = layout_conversions(lambda: tr._step(tr.state, payload[True]))
+    log("layout conversions of one train step: not linked to ops by the profiler" if conv is None
+        else f"layout conversions of one train step: {conv[0]} kernels, {conv[1]:.3f} ms")
+    phase("dw timings", t0)
+    for tr in trainers.values():
+        tr.ckpt.close()
+
+    return {
+        "name": "blocked_dw",
+        "route": "cuda",
+        "source": "fullycnnspeechenhancement_torch/ops/csrc/blocked_dw.cu",
+        "replaces": "fullycnnspeechenhancement_tpu/ops/pallas_dw.py:51",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib_ms,
+    }
+
+
+def build_kernels() -> None:
+    """Phase 2: one nvcc per CUDA source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fullycnnspeechenhancement_torch.ops import blocked_dw, build, rced_stack
+
+    names = ("rced_stack", "blocked_dw")
+
+    def timed_build(name):
+        t0 = time.perf_counter()
+        build.build(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        seconds = dict(zip(names, pool.map(timed_build, names)))
+    rced_stack.load_library()
+    blocked_dw.load_library()
+    for name in names:
+        log(f"build: {name}.cu in {seconds[name]:.1f} s")
+        log_path = f"{build.library_path(name)}.log"
+        if os.path.exists(log_path):
+            for line in open(log_path).read().splitlines():
+                if "registers" in line or "smem" in line or "spill" in line or "entry function" in line:
+                    log(f"  ptxas: {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 1
 
-    from fullycnnspeechenhancement_torch import Config, ModelConfig
-    from fullycnnspeechenhancement_torch.data.audio_io import read_wav, write_wav
-    from fullycnnspeechenhancement_torch.infer import InferenceEngine, disable_tf32
-    from fullycnnspeechenhancement_torch.models import get_model
-    from fullycnnspeechenhancement_torch.models.blocks import conv2d_same
-    from fullycnnspeechenhancement_torch.ops import rced_stack
-    from fullycnnspeechenhancement_torch.train.checkpoint import export_params_npz
+    from fullycnnspeechenhancement_torch.device import disable_tf32
 
     dev = torch.device("cuda")
     disable_tf32()
@@ -191,182 +833,16 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    rced_stack.load_library()
-    log(f"build: rced_stack.cu in {time.perf_counter() - t0:.1f} s")
-    from fullycnnspeechenhancement_torch.ops import build
-
-    log_path = f"{build.library_path('rced_stack')}.log"
-    if os.path.exists(log_path):
-        for line in open(log_path).read().splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
-
+    build_kernels()
+    phase("build", t0)
     with tempfile.TemporaryDirectory() as tmp:
-        # -- 3. engines ----------------------------------------------------
-        model = get_model("FullyCNNV2")
-        params, bn = model.init(torch.Generator().manual_seed(0), device=dev)
-        bn = randomized_bn(bn, seed=0)
-        npz = os.path.join(tmp, "v2.npz")
-        export_params_npz(npz, params, bn)
-        fused = InferenceEngine(
-            Config(model=ModelConfig(net_work="FullyCNNV2", fused_inference=True)),
-            checkpoint=npz, device="cuda",
-        )
-        plain = InferenceEngine(
-            Config(model=ModelConfig(net_work="FullyCNNV2")), checkpoint=npz, device="cuda"
-        )
+        t0 = time.perf_counter()
+        stack_entry = run_serving(dev, tmp)
+        phase("serving", t0)
+        dw_entry = run_training(dev, tmp)
 
-        # -- 4. the main path ------------------------------------------------
-        rng = np.random.default_rng(0)
-        requests = [speech_like(rng, s) for s in (1.5, 6.0, 30.0)]
-        wav_in = os.path.join(tmp, "noisy.wav")
-        write_wav(wav_in, speech_like(rng, 3.0), 8000)
-        rced_stack.launches = 0
-        outs = []
-        for sig in requests:
-            t0 = time.perf_counter()
-            outs.append(fused.denoise_array(sig))
-            log(f"request {len(sig) / 8000:.1f} s: {1e3 * (time.perf_counter() - t0):.1f} ms (first call)")
-        out_path = fused.denoise(wav_in, save_path=os.path.join(tmp, "fused"))
-        launches = rced_stack.launches
-        log(f"main path: rced_stack launches {launches}")
-        if launches != 4:
-            raise AssertionError(f"rced_stack launched {launches} times on the main path, expected 4")
-
-        # -- 5. outputs against the unfused engine ---------------------------
-        for sig, got in zip(requests, outs):
-            ref = torch.as_tensor(plain.denoise_array(sig))
-            got = torch.as_tensor(got)
-            if got.shape != (len(sig),):
-                raise AssertionError(f"output length {got.shape} for {len(sig)} samples")
-            err = check_close(f"engine {len(sig)}", got, ref, 0.0, MAIN_TOL * ref.abs().max().item())
-            log(f"engine {len(sig) / 8000:.1f} s: fused vs cuDNN max abs err {err:.3e} "
-                f"(max|ref| {ref.abs().max().item():.3e})")
-        ref_path = plain.denoise(wav_in, save_path=os.path.join(tmp, "plain"))
-        got_w, _ = read_wav(out_path)
-        ref_w, _ = read_wav(ref_path)
-        src, _ = read_wav(wav_in)
-        if len(got_w) != len(src):
-            raise AssertionError(f"{out_path}: {len(got_w)} samples, input has {len(src)}")
-        # one int16 step on top: both files are rounded to 16-bit PCM
-        err = check_close("file", torch.as_tensor(got_w), torch.as_tensor(ref_w), 0.0,
-                          MAIN_TOL * np.abs(ref_w).max() + 1.0 / 32767)
-        log(f"file {os.path.basename(out_path)}: {len(got_w)} samples, max abs err {err:.3e}")
-
-        # -- 6. kernel against its plain version -----------------------------
-        max_err = 0.0
-        for name in ("FullyCNN", "FullyCNNV2", "FullyCNNV3"):
-            m = get_model(name)
-            p, s = m.init(torch.Generator().manual_seed(1), device=dev)
-            s = randomized_bn(s, seed=2)
-            pk = rced_stack.pack_inference_stack(m, p, s)
-            for T in (70, 45):
-                mag = torch.as_tensor(np.random.default_rng(T).random((2, T, 129), dtype=np.float32), device=dev)
-                y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
-                e = check_close(f"{name} T={T}", rced_stack.stack_forward(pk, y1),
-                                rced_stack.stack_forward_plain(pk, y1), 1e-4, 1e-5)
-                ref_apply = m.apply(p, s, mag[..., None])[0][..., 0]
-                check_close(f"{name} T={T} fused vs apply",
-                            rced_stack.fused_inference_forward(m, p, s, mag, packed=pk),
-                            ref_apply, 1e-4, 1e-5)
-                max_err = max(max_err, e)
-                log(f"kernel {name} B=2 T={T}: max abs err vs plain {e:.3e}")
-        pk = fused._packed
-        for n in sorted({len(x) for x in requests} | {len(src)}):
-            T = fused.ext.num_frames(fused._pad_len(n))
-            mag = torch.as_tensor(rng.random((1, T, 129), dtype=np.float32) * 10, device=dev)
-            y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
-            ref = rced_stack.stack_forward_plain(pk, y1)
-            e = check_close(f"V2 B=1 T={T}", rced_stack.stack_forward(pk, y1), ref,
-                            1e-4, 1e-5 * ref.abs().max().item())
-            max_err = max(max_err, e)
-            log(f"kernel V2 B=1 T={T}: max abs err vs plain {e:.3e}")
-
-        # -- 7. timings --------------------------------------------------------
-        B, T = 64, fused.ext.num_frames(8 * 8000)
-        mag = torch.as_tensor(np.random.default_rng(7).random((B, T, 129), dtype=np.float32), device=dev)
-        y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
-        got = rced_stack.stack_forward(pk, y1)
-        ref = rced_stack.stack_forward_plain(pk, y1)
-        e = check_close(f"V2 B={B} T={T}", got, ref, 1e-4, 1e-5 * ref.abs().max().item())
-        max_err = max(max_err, e)
-        folded = rced_stack.fold_bn_inference(fused.model, fused.params, fused.bn_state)
-        check_close(f"V2 B={B} T={T} cuDNN stack", inner_stack_cudnn(folded, y1), ref,
-                    1e-4, 1e-5 * ref.abs().max().item())
-        del got, ref
-        kernel_ms = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
-        plain_ms = cuda_ms(lambda: rced_stack.stack_forward_plain(pk, y1), reps=3, warmup=1)
-        cudnn_ms = cuda_ms(lambda: inner_stack_cudnn(folded, y1), reps=10)
-        kernel_ms_2 = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
-        flop, nbytes = stack_work(pk, B, T)
-        t_ops, t_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        log(f"timing V2 inner stack at {B} x 8 s (T={T}): kernel {kernel_ms:.3f} / {kernel_ms_2:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, cuDNN layer by layer {cudnn_ms:.3f} ms")
-        log(f"bound: {flop:.4e} FLOP -> {t_ops:.3f} ms at 67 TFLOP/s; {nbytes:.4e} B -> "
-            f"{t_bytes:.3f} ms at 3.35 TB/s; kernel at {100 * bound_ms / kernel_ms:.1f}% of bound")
-
-        # stages of one 8 s request, fused engine
-        sig = requests[1]
-        n = len(sig)
-        wav = torch.zeros(1, fused._pad_len(n), device=dev)
-        wav[0, :n] = torch.as_tensor(sig, device=dev)
-        lengths = torch.tensor([n], dtype=torch.int32, device=dev)
-        with torch.inference_mode():
-            mag1, pre, pim = fused.ext.magnitude_and_phase(wav, lengths)
-            y1r = torch.relu(conv2d_same(mag1[:, None], *pk.first[1:])).contiguous()
-            zr = rced_stack.stack_forward(pk, y1r)
-            pred = conv2d_same(zr, *pk.last[1:])[:, 0]
-            stages = {
-                "analysis": cuda_ms(lambda: fused.ext.magnitude_and_phase(wav, lengths), 20),
-                "layer1_cudnn": cuda_ms(lambda: conv2d_same(mag1[:, None], *pk.first[1:]), 20),
-                "inner_kernel": cuda_ms(lambda: rced_stack.stack_forward(pk, y1r), 20),
-                "last_cudnn": cuda_ms(lambda: conv2d_same(zr, *pk.last[1:]), 20),
-                "rebuild": cuda_ms(lambda: fused.reb(pred, pre, pim), 20),
-                "inner_cudnn_layerwise": cuda_ms(lambda: inner_stack_cudnn(folded, y1r), 20),
-            }
-        log("stages of one 8 s request (ms): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
-        # whole requests, untraced (host clock per call; each call ends in a
-        # copy to the host), then traced for the device-busy time
-        for label, eng in (("fused", fused), ("cudnn", plain)):
-            for sig in requests:
-                eng.denoise_array(sig)
-                times = []
-                for _ in range(40):
-                    t0 = time.perf_counter()
-                    eng.denoise_array(sig)
-                    times.append((time.perf_counter() - t0) * 1e3)
-                med, p75, mean = np.median(times), np.percentile(times, 75), np.mean(times)
-                traced_ms, busy_ms, events = device_busy_ms(lambda: eng.denoise_array(sig), reps=20)
-                busy = "device busy not measured" if busy_ms is None else (
-                    f"device busy {busy_ms:.3f} ms in {events:.0f} device events, "
-                    f"idle share {1 - busy_ms / mean:.3f}")
-                log(f"request {label} {len(sig) / 8000:.1f} s: host ms median {med:.3f} p75 {p75:.3f} "
-                    f"mean {mean:.3f} (n=40), {len(sig) / 8000 / med * 1e3:.1f} audio-s/s; "
-                    f"traced {traced_ms:.3f} ms, {busy}")
-
-    kernels = {
-        "kernels": [
-            {
-                "name": "rced_stack",
-                "route": "cuda",
-                "source": "fullycnnspeechenhancement_torch/ops/csrc/rced_stack.cu",
-                "replaces": "fullycnnspeechenhancement_tpu/ops/pallas_rced.py:135",
-                "launches": launches,
-                "max_abs_err": max_err,
-                "ms": kernel_ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                # No single PyTorch call computes the stack; the cuDNN
-                # layer-by-layer stack (14 convs plus adds) is its own key.
-                "library_ms": None,
-                "cudnn_stack_ms": cudnn_ms,
-            }
-        ]
-    }
+    kernels = {"kernels": [stack_entry, dw_entry]}
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({

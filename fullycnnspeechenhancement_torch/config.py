@@ -17,9 +17,10 @@ Known reference quirks handled here (SURVEY.md Appendix A.1/A.2):
     (hamming / 256) and warn when an INI file asks for something the
     reference would silently ignore.
 
-Fields that belong to modules not yet ported (training, data pipeline,
-device cache, parallel) are parsed all the same, so a config round-trips
-unchanged; ROADMAP.md lists when each is consumed.
+Fields that belong to modules not yet ported (validation, the device
+cache, data parallelism, the native loader) are parsed all the same, so a
+config round-trips unchanged; the entry points raise `NotImplementedError`
+naming the ROADMAP.md item when one of them is set.
 """
 
 from __future__ import annotations
@@ -86,19 +87,24 @@ class ModelConfig:
     net_work: str = "FullyCNNV2"
     feature_dim: int = 129
     # Compute dtype for conv stacks.  float32 matches the reference; the
-    # port serves float32 only so far (bfloat16 is queued in ROADMAP.md).
+    # port serves and trains float32 only so far (the train step raises on
+    # bfloat16, which is queued in ROADMAP.md).
     compute_dtype: str = "float32"
     # Serve inference through the fused inner-stack kernel
     # (ops/rced_stack.py, CUDA source ops/csrc/rced_stack.cu): one
     # device-memory read and one write for the inner conv layers instead
     # of a round trip per layer.  Float32 operands and accumulation.
     fused_inference: bool = False
-    # Freq-to-depth "blocked" forward of the JAX package
-    # (models/blocked.py there).  Not ported yet; parsed for parity.
+    # Run the train step's conv stack through the freq-to-depth "blocked"
+    # forward (models/blocked.py): an exact reparametrization that folds
+    # `blocked_fb` frequency bins into channels.  Same math and params;
+    # only the float32 reduction order differs.
     blocked_compute: bool = False
     blocked_fb: int = 8
-    # The JAX package's optional dW kernel for the blocked backward.  Not
-    # ported yet; parsed for parity.
+    # With blocked_compute: the inner (1, k) layers' weight gradient runs
+    # in the hand-written CUDA kernel (ops/blocked_dw.py, CUDA source
+    # ops/csrc/blocked_dw.cu) instead of cuDNN's autograd.  The name is
+    # the JAX package's, whose kernel was a Pallas one.
     dw_pallas: bool = False
 
 
@@ -125,6 +131,8 @@ class TrainConfig:
     valid_every_epochs: int = 5
     max_checkpoints_to_keep: int = 10
     data_parallel: int = 1
+    # Optimizer steps per dispatch: the trainer stacks K same-bucket
+    # batches and runs them in one `make_multi_step` call.
     steps_per_call: int = 1
 
 

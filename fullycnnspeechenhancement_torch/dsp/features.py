@@ -54,7 +54,7 @@ class SpectrogramExtractor:
     Works on the device of the tensors it is given.  In float32 the DFT
     matmul must not run in TF32 on the card: the synthesis de-emphasis IIR
     amplifies spectral error by up to 1/(1-0.97) ~= 33x.  The inference
-    engine turns TF32 off (`infer.disable_tf32`).
+    engine turns TF32 off (`device.disable_tf32`).
     """
 
     cfg: DSPConfig

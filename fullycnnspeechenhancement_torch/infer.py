@@ -7,6 +7,8 @@ Counterpart of `fullycnnspeechenhancement_tpu/infer.py` (the reference's
 length bucket (2, 4, 8, 16, 32 s; longer inputs to a multiple of 32 s) so
 that the shapes a card sees stay few.
 
+Weights come from an npz bridge file, or from a checkpoint of this
+package (an `epoch_<N>.pt` file, or a run directory: its latest epoch).
 `config.model.fused_inference` selects the fused inner-stack kernel
 (`ops/rced_stack.py`) over the layer-by-layer cuDNN path.  The
 time-sharded path of the JAX engine (`mesh=`) is not ported yet
@@ -30,6 +32,7 @@ import torch
 
 from fullycnnspeechenhancement_torch.config import Config
 from fullycnnspeechenhancement_torch.data.audio_io import read_wav, write_wav
+from fullycnnspeechenhancement_torch.device import disable_tf32, resolve_device
 from fullycnnspeechenhancement_torch.dsp.features import SpectrogramExtractor
 from fullycnnspeechenhancement_torch.dsp.rebuild import WaveformRebuilder
 from fullycnnspeechenhancement_torch.models import get_model
@@ -37,27 +40,13 @@ from fullycnnspeechenhancement_torch.ops.rced_stack import (
     fused_inference_forward,
     pack_inference_stack,
 )
-from fullycnnspeechenhancement_torch.train.checkpoint import import_reference_npz
+from fullycnnspeechenhancement_torch.train.checkpoint import (
+    find_checkpoint,
+    import_reference_npz,
+    load_params,
+)
 
 logger = logging.getLogger(__name__)
-
-
-def disable_tf32() -> None:
-    """Float32 convs and matmuls in full float32 on the card (process-wide
-    PyTorch flags)."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
-def resolve_device(device) -> torch.device:
-    """`device` as a torch.device; a CUDA device without CUDA raises
-    rather than falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 class InferenceEngine:
@@ -91,13 +80,19 @@ class InferenceEngine:
     def _load(self, checkpoint: Optional[str]):
         ckpt_path = checkpoint or self.config.eval.checkpoint_filepath
         if ckpt_path:
-            if not ckpt_path.endswith(".npz"):
+            if ckpt_path.endswith(".npz"):
+                logger.info("importing reference npz weights: %s", ckpt_path)
+                return import_reference_npz(ckpt_path, self.model, self.device)
+            found = find_checkpoint(ckpt_path)
+            if found is None:
                 raise NotImplementedError(
-                    f"{ckpt_path}: only npz weights load so far; the port's "
-                    "checkpoint format comes with ROADMAP.md Queue 1 item 3"
+                    f"{ckpt_path}: neither an npz file nor a checkpoint (file or "
+                    "run directory) of this package; the JAX package's orbax "
+                    "directories need JAX to read: export them to npz with its "
+                    "export_params_npz (ROADMAP.md Queue 1 item 3)"
                 )
-            logger.info("importing reference npz weights: %s", ckpt_path)
-            return import_reference_npz(ckpt_path, self.model, self.device)
+            logger.info("loading checkpoint: %s", found)
+            return load_params(found, self.device)
         logger.warning(
             "no checkpoint configured; using random init (seed %d)",
             self.config.train.seed,

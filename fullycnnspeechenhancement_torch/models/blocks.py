@@ -9,13 +9,16 @@ conv2d(SAME) -> optional BN -> optional skip-add (after BN, *before* ReLU)
     after (time-kernel 8 -> 3 frames before, 4 after), so the block pads
     with `F.pad` and convolves with padding 0;
   * conv kernel init Glorot/Xavier uniform, bias zeros;
-  * BN epsilon 1e-3, applied by hand (not `nn.BatchNorm2d`).
+  * BN momentum 0.99, epsilon 1e-3, applied by hand (not
+    `nn.BatchNorm2d`, which updates the running variance with the
+    unbiased estimate and takes no frame mask); moving stats are updated
+    as moving = momentum*moving + (1-momentum)*batch with the *biased*
+    batch variance.
 
 Weights are OIHW.  The JAX package keeps HWIO; `w_hwio.permute(3, 2, 0, 1)`
 converts, with no flip: both frameworks compute cross-correlation.
-
-This slice is the serving path, so BN runs in inference mode only; the
-training-mode moments come with the training slice (ROADMAP.md).
+Activations run in the dtype of `x`; parameters and BN state stay float32
+and are cast to it where the JAX package casts them.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+BN_MOMENTUM = 0.99
 BN_EPSILON = 1e-3
 
 
@@ -39,6 +43,31 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     """NCHW conv, stride 1, TF SAME padding; `w` is OIHW."""
     (ph0, ph1), (pw0, pw1) = tf_same_pads(tuple(w.shape[2:]))
     return F.conv2d(F.pad(x, (pw0, pw1, ph0, ph1)), w, b)
+
+
+def masked_moments(y: torch.Tensor, frame_mask: Optional[torch.Tensor]):
+    """Biased batch (mean, var) per channel of NCHW `y` over (B, T, F), in
+    at least float32 (float64 stays float64), as E[y^2] - mean^2.
+
+    `frame_mask` ([B, T] per utterance, or [1, T]: the batch-max mask,
+    which stays broadcast) restricts the moments to masked frames; the
+    denominator is sum(mask) * F * (B // rows of the mask)."""
+    y32 = y.to(torch.promote_types(torch.float32, y.dtype))
+    if frame_mask is None:
+        mean = y32.mean(dim=(0, 2, 3))
+        return mean, (y32 * y32).mean(dim=(0, 2, 3)) - mean * mean
+    m = frame_mask.to(y32.dtype)[:, None, :, None]
+    n = m.sum() * y.shape[3] * (y.shape[0] // frame_mask.shape[0])
+    mean = (y32 * m).sum(dim=(0, 2, 3)) / n
+    return mean, (y32 * y32 * m).sum(dim=(0, 2, 3)) / n - mean * mean
+
+
+def updated_bn_state(state, mean: torch.Tensor, var: torch.Tensor):
+    """The moving statistics after one training batch (detached)."""
+    return {
+        "mean": BN_MOMENTUM * state["mean"] + (1.0 - BN_MOMENTUM) * mean.detach(),
+        "var": BN_MOMENTUM * state["var"] + (1.0 - BN_MOMENTUM) * var.detach(),
+    }
 
 
 def glorot_uniform(generator: torch.Generator, out_ch, in_ch, kh, kw) -> torch.Tensor:
@@ -69,10 +98,10 @@ def conv_bn_relu_init(
     return params, state
 
 
-def bn_scale_shift(params, state):
-    """Inference-mode BN as y * scale + shift, per channel."""
-    scale = params["gamma"] * torch.rsqrt(state["var"] + BN_EPSILON)
-    return scale, params["beta"] - state["mean"] * scale
+def bn_scale_shift(params, mean, var):
+    """BN as y * scale + shift, per channel, from (mean, var)."""
+    scale = params["gamma"] * torch.rsqrt(var + BN_EPSILON)
+    return scale, params["beta"] - mean * scale
 
 
 def conv_bn_relu_apply(
@@ -84,20 +113,27 @@ def conv_bn_relu_apply(
     use_norm: bool = True,
     use_act: bool = True,
     skip_input: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Apply one block to NCHW `x` ([B, C, T, F]) with BN in inference mode."""
-    if is_training:
-        raise NotImplementedError(
-            "training-mode batch norm is not ported yet (ROADMAP.md Queue 1 "
-            "item 2, training-mode BN)"
-        )
-    y = conv2d_same(x, params["w"], params["b"])
+    frame_mask: Optional[torch.Tensor] = None,
+):
+    """Apply one block to NCHW `x` ([B, C, T, F]).  Returns (y, new_state).
+
+    `new_state` is `state` unchanged in eval mode or without BN.  In
+    training mode BN normalises with the batch moments over (B, T, F),
+    restricted to the frames of `frame_mask` ([B, T] or [1, T]) when it is
+    given; activations at masked-out frames still flow forward."""
+    y = conv2d_same(x, params["w"].to(x.dtype), params["b"].to(x.dtype))
+    new_state = state
     if use_norm:
-        scale, shift = bn_scale_shift(params, state)
-        y = y * scale[:, None, None] + shift[:, None, None]
+        if is_training:
+            mean, var = masked_moments(y, frame_mask)
+            new_state = updated_bn_state(state, mean, var)
+        else:
+            mean, var = state["mean"], state["var"]
+        scale, shift = bn_scale_shift(params, mean, var)
+        y = y * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
     if skip_input is not None:
         # Skip add after BN, before ReLU (module.py:30-31).
         y = y + skip_input
     if use_act:
         y = torch.relu(y)
-    return y
+    return y, new_state

@@ -62,13 +62,26 @@ class ModelDef:
             ch = spec.out_ch
         return params, state
 
-    def apply(self, params, state, x: torch.Tensor, *, is_training: bool = False):
-        """NHWC [B, T, F, 1] -> [B, T, F, 1], BN in inference mode.
-        Returns (y, state) like the JAX package's `apply`."""
+    def apply(
+        self,
+        params,
+        state,
+        x: torch.Tensor,
+        *,
+        is_training: bool = False,
+        frame_mask: Optional[torch.Tensor] = None,
+    ):
+        """NHWC [B, T, F, 1] -> [B, T, F, 1].  Returns (y, new_state) like
+        the JAX package's `apply`.
+
+        Activations run in the dtype of `x` (the caller casts it to
+        `compute_dtype`).  `frame_mask` ([B, T], or [1, T] for the
+        row-identical batch-max mask) restricts training-mode BN's batch
+        statistics to masked frames (see blocks.conv_bn_relu_apply)."""
         h = x.permute(0, 3, 1, 2)  # NCHW inside
-        taps = {}
+        taps, new_state = {}, {}
         for spec in self.layers:
-            h = conv_bn_relu_apply(
+            h, s = conv_bn_relu_apply(
                 params[spec.name],
                 state.get(spec.name, {}),
                 h,
@@ -76,11 +89,14 @@ class ModelDef:
                 use_norm=spec.use_norm,
                 use_act=spec.use_act,
                 skip_input=taps[spec.skip_from] if spec.skip_from else None,
+                frame_mask=frame_mask,
             )
             if spec.add_from is not None:
                 h = h + taps[spec.add_from]
+            if spec.name in state:
+                new_state[spec.name] = s
             taps[spec.name] = h
-        return h.permute(0, 2, 3, 1), state
+        return h.permute(0, 2, 3, 1), new_state
 
     def param_count(self, in_ch: int = 1) -> int:
         total, ch = 0, in_ch

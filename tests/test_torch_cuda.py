@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 This file imports neither JAX nor the JAX package, so a machine with a card
 and without JAX runs it (the tests' conftest imports JAX, hence
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from fullycnnspeechenhancement_torch.models import get_model
-from fullycnnspeechenhancement_torch.ops import rced_stack
+from fullycnnspeechenhancement_torch.ops import blocked_dw, rced_stack
 from fullycnnspeechenhancement_torch.train.checkpoint import params_from_numpy
 
 NAMES = ["FullyCNN", "FullyCNNV2", "FullyCNNV3"]
@@ -44,6 +44,19 @@ def numpy_params(name, seed):
         params[spec.name] = p
         ch = spec.out_ch
     return params, bn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_cpu_thread_per_worker():
+    """The tier-1 run puts six pytest workers on the CPU, and torch's
+    default of one thread per core in each of them oversubscribes it
+    (measured on an 8-core host: the port's test files took 216 s with the
+    default and 50 s with one thread each).  Port test files import this
+    fixture, so it applies to their modules."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -80,3 +93,64 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous float32"):
         rced_stack.stack_forward(packed, x)
     assert rced_stack.launches == before
+
+
+def _dw_inputs(B, T, ci, co, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(B, T, 17, ci, generator=g).to(device)
+    dy = torch.randn(B, T, 17, co, generator=g).to(device)
+    return z, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 37, 80, 96), (64, 512, 184, 200)], ids=["ragged", "v2_layer"])
+def test_blocked_dw_matches_plain_on_cuda(cuda_device, shape):
+    """B*T = 111 rows leaves ragged stages and splits; 64 x 512 is V2's
+    encode_8 at the 8 s bucket.  f32 sums over up to 557k terms in another
+    order: atol 1e-4 * max|plain|."""
+    B, T, ci, co = shape
+    z, dy = _dw_inputs(B, T, ci, co, cuda_device)
+    before = blocked_dw.launches
+    got = blocked_dw.blocked_dw(z, dy, 4, 2)
+    torch.cuda.synchronize()
+    assert blocked_dw.launches == before + 1
+    ref = blocked_dw.blocked_dw_plain(z, dy, 4, 2)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+    # no atomics: a second launch repeats the first bit for bit
+    assert torch.equal(blocked_dw.blocked_dw(z, dy, 4, 2), got)
+
+
+@pytest.mark.cuda
+def test_blocked_freq_conv_gradients_match_autograd_on_cuda(cuda_device):
+    z0, g = _dw_inputs(2, 9, 24, 16, cuda_device, seed=1)
+    w0 = 0.1 * torch.randn(1, 4, 24, 16, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    torch.backends.cudnn.allow_tf32 = False
+    grads = []
+    for fn in (
+        lambda z, w: blocked_dw.blocked_freq_conv(z, w, 2),
+        lambda z, w: blocked_dw.conv_nhwc(z, w, ((0, 0), (2, 1))),
+    ):
+        z, w = z0.clone().requires_grad_(), w0.clone().requires_grad_()
+        (fn(z, w) * g).sum().backward()
+        grads.append((z.grad, w.grad))
+    (dzc, dwc), (dzr, dwr) = grads
+    torch.testing.assert_close(dzc, dzr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dwc, dwr, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float64", "strided", "taps"])
+def test_blocked_dw_raises_instead_of_falling_back(cuda_device, bad):
+    z, dy = _dw_inputs(2, 5, 16, 24, cuda_device)
+    kb = 4
+    if bad == "float64":
+        z, dy = z.double(), dy.double()
+    elif bad == "strided":
+        z = z.transpose(0, 1)
+        dy = dy.transpose(0, 1)
+    else:
+        kb = blocked_dw.MAX_KB + 1
+    before = blocked_dw.launches
+    with pytest.raises(ValueError):
+        blocked_dw.blocked_dw(z, dy, kb, 2)
+    assert blocked_dw.launches == before

@@ -23,6 +23,7 @@ from fullycnnspeechenhancement_torch.data import audio_io as t_audio
 from fullycnnspeechenhancement_torch.dsp import features as t_features
 from fullycnnspeechenhancement_torch.dsp import rebuild as t_rebuild
 from fullycnnspeechenhancement_torch.dsp import reference_dsp, windows as t_windows
+from test_torch_cuda import one_cpu_thread_per_worker  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 J_CFG = jcfg.DSPConfig()

@@ -17,7 +17,7 @@ from fullycnnspeechenhancement_tpu.train.checkpoint import export_params_npz as 
 from fullycnnspeechenhancement_torch import config as tcfg
 from fullycnnspeechenhancement_torch.data.audio_io import read_wav, write_wav
 from fullycnnspeechenhancement_torch.infer import InferenceEngine
-from test_torch_cuda import numpy_params
+from test_torch_cuda import numpy_params, one_cpu_thread_per_worker  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Short buckets keep the JAX compiles small; the two signals land in

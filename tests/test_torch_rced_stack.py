@@ -16,7 +16,7 @@ from fullycnnspeechenhancement_torch.models import get_model
 from fullycnnspeechenhancement_torch.models.rced import ConvSpec, ModelDef
 from fullycnnspeechenhancement_torch.ops import build, rced_stack
 from fullycnnspeechenhancement_torch.train.checkpoint import params_from_numpy
-from test_torch_cuda import NAMES, numpy_params
+from test_torch_cuda import NAMES, numpy_params, one_cpu_thread_per_worker  # noqa: F401
 
 
 def _params(name, seed):
