@@ -8,9 +8,10 @@ for an H100) and `nvcc`.  It imports only the port
 (`fullycnnspeechenhancement_torch`), never JAX, and in order:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds both CUDA kernels for sm_90a, one `nvcc` per source, started
-     together (`ops/csrc/rced_stack.cu`, `ops/csrc/blocked_dw.cu`), and
-     prints their ptxas lines and build times;
+  2. builds the CUDA kernels for sm_90a, one `nvcc` per source, started
+     together (`ops/csrc/rced_stack.cu`, `ops/csrc/blocked_dw.cu`,
+     `ops/csrc/freq_conv.cu`), and prints their ptxas lines and build
+     times;
 
   The serving path (the fused inference kernel, `rced_stack`):
   3. builds two V2 inference engines at full width from one npz of random
@@ -55,8 +56,27 @@ for an H100) and `nvcc`.  It imports only the port
      yardstick) with CUDA events, the whole train step with dw_pallas on
      and off, the device-busy time of one steps_per_call=8 dispatch, and
      which ops launch cuDNN's layout conversions in one train step;
- 12. prints a `kernels` JSON line, the card line again, and last the line
-     {"ok": true, "device": {...}}.
+
+  The kernel-probe path (the frequency-conv kernels, `freq_conv` and
+  `freq_conv_stack`):
+ 12. runs every probe of `fullycnnspeechenhancement_torch.probes` (the
+     counterparts of `benchmarks/micro_pallas_*.py`) once at its script's
+     shapes, with both launch counts set to 0 just before and read just
+     after: 12 `freq_conv` and 5 `freq_conv_stack` launches; holds each
+     output against its plain version on the card (rtol 1e-5, atol 1e-5 *
+     max|plain|) and, for the zero-boundary probes, cuDNN's F.conv2d; times
+     each (kernel, plain and library device time per call from
+     torch.profiler, and the call's time with CUDA events) beside its
+     bound; then runs the probes' CLI once;
+ 13. holds `freq_conv` against its plain version and F.conv2d on V2's 14
+     inner layer shapes at 64 x 8 s (NCHW activations, weights through
+     `params_from_numpy`) and times each against both and its bound; logs
+     the 14-layer sums beside `rced_stack` and the cuDNN stack of phase 7;
+ 14. times `freq_conv_stack` against `depth` launches of `freq_conv` and
+     its plain version at roll2's shape, depths 1, 4, 8 and 16, after
+     holding all three equal;
+ 15. prints a `kernels` JSON line (four kernels), the card line again, and
+     last the line {"ok": true, "device": {...}}.
 
 Each phase prints its wall time.  Any failed phase raises, so the script
 exits non-zero and prints no last line.  Without CUDA it exits 1 at once.
@@ -91,6 +111,9 @@ PARITY_STEPS = 4
 PARITY_MOMENT_TOL = 1e-3
 PARITY_UPDATE_TOL = 0.2
 DW_TOL = 1e-4  # blocked_dw against plain: rtol, and atol = DW_TOL * max|plain|
+# freq_conv / freq_conv_stack against plain (and cuDNN): rtol, and atol =
+# PROBE_TOL * max|plain|; float32 sums of up to 352 terms in another order.
+PROBE_TOL = 1e-5
 
 
 def phase(name: str, t0: float) -> None:
@@ -794,13 +817,272 @@ def run_training(dev, tmp: str) -> dict:
     }
 
 
+# -- the kernel-probe path -------------------------------------------------
+
+
+def distinct_elements(t) -> int:
+    """Elements a view reads from memory: a stride-0 dimension repeats."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n
+
+
+def conv_work(x, w, options, out_numel: int):
+    """(FLOP, bytes) of one `freq_conv` on x [B, R, P, C] and w [K, C, D]:
+    products only at live output positions and only against real inputs
+    (a zero-boundary tap that falls off the row meets no input); x and w
+    read once, y written once."""
+    B, R, P, C = x.shape
+    K, _, D = w.shape
+    lo = options.get("lo", (K - 1) // 2)
+    dil = options.get("dilation", 1)
+    period = options.get("period", 0)
+    p = np.arange(P)
+    live = (p % period < options.get("valid", 0)) if period else np.ones(P, bool)
+    if options.get("circular", False):
+        taps = np.full(P, K)
+    else:
+        q = p[:, None] + np.arange(K)[None, :] * dil - lo
+        taps = ((q >= 0) & (q < P)).sum(1)
+    flop = 2.0 * B * R * C * D * taps[live].sum()
+    nbytes = 4.0 * (distinct_elements(x) + distinct_elements(w) + out_numel)
+    return flop, nbytes
+
+
+def chain_work(x, w, options):
+    """(FLOP, bytes) of one `freq_conv_stack` on x [C, N]: layer 1 reads
+    real lanes at every tap of the live lanes; later layers' taps count only
+    where they meet a live lane (the rest is the mask's zeros)."""
+    from fullycnnspeechenhancement_torch.ops.freq_conv import FRAME, VALID
+
+    C, N = x.shape
+    K = w.shape[0]
+    frame, valid = options.get("frame", FRAME), options.get("valid", VALID)
+    q = np.arange(valid)[:, None] + np.arange(K)[None, :] - (K - 1) // 2
+    inner = int(((q >= 0) & (q < valid)).sum())
+    macs = (N // frame) * C * C * (valid * K + (options["depth"] - 1) * inner)
+    return 2.0 * macs, 4.0 * (2 * x.numel() + distinct_elements(w))
+
+
+def bound_of(flop, nbytes):
+    """(bound ms, what bounds it) at the H100's float32 and memory peaks."""
+    t_ops, t_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def conv2d_call(x, w, options):
+    """The one PyTorch call that computes a `freq_conv` on (x, w): cuDNN's
+    F.conv2d on the NCHW view, for a zero boundary with symmetric padding
+    and no epilogue; else (None, why not)."""
+    import torch.nn.functional as F
+
+    K = w.shape[0]
+    lo = options.get("lo", (K - 1) // 2)
+    dil = options.get("dilation", 1)
+    if options.get("circular"):
+        return None, "circular boundary: no single PyTorch call (F.pad circular + conv2d is two)"
+    if options.get("period") or options.get("relu") or options.get("scale", 1.0) != 1.0:
+        return None, "masked epilogue: no single PyTorch call"
+    if 2 * lo != (K - 1) * dil:
+        return None, "asymmetric padding: no single PyTorch call"
+    xn = x.permute(0, 3, 1, 2)
+    wo = w.permute(2, 1, 0)[:, :, None, :].contiguous()
+    return (lambda: F.conv2d(xn, wo, padding=(0, lo), dilation=(1, dil)).permute(0, 2, 3, 1)), None
+
+
+def busy_ms(fn, reps: int = 20, tries: int = 3):
+    """Device time per call of `fn` (torch.profiler), or None.  A short
+    profile now and then records no device event (2 of 51 in one run on
+    the H100), so it is taken again, up to `tries` times."""
+    for _ in range(tries):
+        ms = device_busy_ms(fn, reps)[1]
+        if ms is not None:
+            return ms
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def run_probe_path(dev) -> dict:
+    """Phase (a): every probe of `fullycnnspeechenhancement_torch.probes` at
+    its script's shapes.  Returns per-kernel summaries (launches, errors)."""
+    from fullycnnspeechenhancement_torch.ops import freq_conv as fc
+    from fullycnnspeechenhancement_torch.probes import __main__ as probes_main
+    from fullycnnspeechenhancement_torch.probes import all_probes
+
+    rng = np.random.default_rng(20)
+    arrays, calls = {}, []
+    for module, probe in all_probes():
+        short = module.__name__.rsplit(".", 1)[-1]
+        if short not in arrays:
+            arrays[short] = module.inputs(rng)
+        calls.append((probe, [torch.as_tensor(arrays[short][a], device=dev) for a in probe.args]))
+    want = {k: sum(p.kernel == k for p, _ in calls) for k in ("freq_conv", "freq_conv_stack")}
+
+    # -- the main path: each probe once ------------------------------------
+    fc.launches = fc.stack_launches = 0
+    outs = [probe(*args) for probe, args in calls]
+    torch.cuda.synchronize()
+    got = {"freq_conv": fc.launches, "freq_conv_stack": fc.stack_launches}
+    log(f"probe path: {len(calls)} probes, launches {got}")
+    if got != want:
+        raise AssertionError(f"probe path launched {got}, expected {want}")
+
+    summary = {k: {"launches": got[k], "max_abs_err": 0.0, "max_rel_err": 0.0} for k in got}
+    rows = []
+    for (probe, args), out in zip(calls, outs):
+        ref = probe(*args, plain=True)
+        scale = ref.abs().max().item()
+        err = check_close(probe.name, out, ref, PROBE_TOL, PROBE_TOL * scale)
+        s = summary[probe.kernel]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["max_rel_err"] = max(s["max_rel_err"], err / scale)
+        x, w = probe.operands(*args)
+        if probe.kernel == "freq_conv":
+            flop, nbytes = conv_work(x, w, probe.options, out.numel())
+            lib, why = conv2d_call(x, w, probe.options)
+        else:
+            flop, nbytes = chain_work(x, w, probe.options)
+            lib, why = None, "a chain of layers: no single PyTorch call"
+        if lib is not None:
+            check_close(f"{probe.name} conv2d", probe.result(lib()), out, PROBE_TOL, PROBE_TOL * scale)
+        bound, by = bound_of(flop, nbytes)
+        lib_ms = busy_ms(lib) if lib is not None else None
+        if lib is not None and lib_ms is None:
+            why = "not measured: the profiler recorded no device event"
+        row = {
+            "name": probe.name, "row": probe.row, "kernel": probe.kernel, "launches": 1,
+            "max_abs_err": err,
+            "ms": busy_ms(lambda: probe(*args)),
+            "plain_ms": busy_ms(lambda: probe(*args, plain=True), reps=5),
+            "library_ms": lib_ms,
+            "call_ms": cuda_ms(lambda: probe(*args), reps=50),
+            "bound_ms": bound, "bound_by": by, "flop": flop,
+        }
+        if why:
+            row["library"] = why
+        rows.append(row)
+        log("probe " + json.dumps(row))
+    log("probe CLI (python -m fullycnnspeechenhancement_torch.probes --reps 10):")
+    probes_main.main(["--reps", "10"])
+    return {"summary": summary, "rows": rows}
+
+
+def run_v2_layers(dev, stack_entry: dict) -> dict:
+    """Phase (b): `freq_conv` on V2's 14 inner layer shapes at 64 x 8 s
+    (NCHW activations [B, C, T, 129] viewed as [B, T, 129, C]), weights
+    drawn with numpy in HWIO and brought over by `params_from_numpy`;
+    against its plain version, cuDNN's F.conv2d and its bound."""
+    import torch.nn.functional as F
+
+    from fullycnnspeechenhancement_torch.config import DSPConfig
+    from fullycnnspeechenhancement_torch.models import get_model
+    from fullycnnspeechenhancement_torch.ops import freq_conv as fc
+    from fullycnnspeechenhancement_torch.train.checkpoint import params_from_numpy
+
+    model = get_model("FullyCNNV2")
+    rng = np.random.default_rng(30)
+    hwio, ch = {}, 1
+    for spec in model.layers:
+        kh, kw = spec.kernel
+        lim = np.sqrt(6.0 / (kh * kw * (ch + spec.out_ch)))
+        hwio[spec.name] = {"w": rng.uniform(-lim, lim, (kh, kw, ch, spec.out_ch)).astype(np.float32),
+                           "b": np.zeros(spec.out_ch, np.float32)}
+        ch = spec.out_ch
+    params, _ = params_from_numpy(hwio, {}, device=dev)
+    B, T = 64, DSPConfig().num_frames(8 * SR)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    cin = model.layers[0].out_ch
+    tot = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "flop": 0.0, "bytes": 0.0, "max_abs_err": 0.0}
+    for spec in model.layers[1:-1]:
+        w_oihw = params[spec.name]["w"]
+        kw = w_oihw.shape[-1]
+        w = w_oihw[:, :, 0, :].permute(2, 1, 0)  # [kw, Cin, Cout] view
+        x = torch.randn(B, cin, T, 129, device=dev, generator=gen)
+        xv = x.permute(0, 2, 3, 1)
+        got = fc.freq_conv(xv, w)
+        ref = fc.freq_conv_plain(xv, w)
+        lib = F.conv2d(x, w_oihw, padding=(0, (kw - 1) // 2)).permute(0, 2, 3, 1)
+        atol = PROBE_TOL * ref.abs().max().item()
+        err = check_close(f"V2 {spec.name}", got, ref, PROBE_TOL, atol)
+        check_close(f"V2 {spec.name} conv2d", lib, got, PROBE_TOL, atol)
+        del ref, lib
+        k_ms = cuda_ms(lambda: fc.freq_conv(xv, w), reps=10)
+        c_ms = cuda_ms(lambda: F.conv2d(x, w_oihw, padding=(0, (kw - 1) // 2)), reps=10)
+        k_ms_2 = cuda_ms(lambda: fc.freq_conv(xv, w), reps=10)
+        p_ms = cuda_ms(lambda: fc.freq_conv_plain(xv, w), reps=2, warmup=1)
+        flop, nbytes = conv_work(xv, w, {}, got.numel())
+        bound, _ = bound_of(flop, nbytes)
+        log(f"  V2 {spec.name} {cin}->{spec.out_ch} kw={kw}: freq_conv {k_ms:.4f} / {k_ms_2:.4f} ms, "
+            f"cuDNN conv2d {c_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({flop:.4e} FLOP), kernel at {100 * bound / k_ms:.1f}% of bound, max abs err {err:.3e}")
+        tot["ms"] += (k_ms + k_ms_2) / 2
+        tot["plain_ms"] += p_ms
+        tot["cudnn_ms"] += c_ms
+        tot["flop"] += flop
+        tot["bytes"] += nbytes
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        cin = spec.out_ch
+        del x, xv, got
+    tot["bound_ms"], tot["bound_by"] = bound_of(tot["flop"], tot["bytes"])
+    log(f"V2 14 inner layers at {B} x 8 s (T={T}): freq_conv sum {tot['ms']:.3f} ms, cuDNN conv2d sum "
+        f"{tot['cudnn_ms']:.3f} ms, plain sum {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+        f"({tot['flop']:.4e} FLOP); same run: rced_stack {stack_entry['ms']:.3f} ms, cuDNN stack "
+        f"{stack_entry['cudnn_stack_ms']:.3f} ms")
+    return tot
+
+
+def run_chain(dev) -> dict:
+    """Phase (c): `freq_conv_stack` against `depth` launches of `freq_conv`
+    at roll2's shape (x [32, 64 * 256], im2col weights), depths 1-16."""
+    from fullycnnspeechenhancement_torch.ops import freq_conv as fc
+    from fullycnnspeechenhancement_torch.probes import roll
+
+    arrays = roll.inputs(np.random.default_rng(40))
+    x0 = torch.as_tensor(arrays["x"], device=dev)
+    wcol = torch.as_tensor(arrays["wcol"], device=dev)
+    out = {}
+    for depth in roll.DEPTHS:
+        probe = roll.im2col_stack(depth)
+        x, w = probe.operands(x0, wcol)
+
+        def chained():
+            h = x
+            for _ in range(depth):
+                h = fc.freq_conv(h.t()[None, None], w, circular=True, period=fc.FRAME,
+                                 valid=fc.VALID, relu=True)[0, 0].t()
+            return h
+
+        got = fc.freq_conv_stack(x, w, depth)
+        ref = fc.freq_conv_stack_plain(x, w, depth)
+        scale = ref.abs().max().item()
+        err = check_close(f"chain depth {depth}", got, ref, PROBE_TOL, PROBE_TOL * scale)
+        check_close(f"chain depth {depth} vs chained launches", chained(), got, PROBE_TOL, PROBE_TOL * scale)
+        s_ms = cuda_ms(lambda: fc.freq_conv_stack(x, w, depth), reps=50)
+        a_ms = cuda_ms(chained, reps=50)
+        s_busy, a_busy = busy_ms(lambda: fc.freq_conv_stack(x, w, depth)), busy_ms(chained)
+        p_ms = cuda_ms(lambda: fc.freq_conv_stack_plain(x, w, depth), reps=5)
+        flop, nbytes = chain_work(x, w, probe.options)
+        bound, by = bound_of(flop, nbytes)
+        log(f"chain depth {depth}: freq_conv_stack {s_ms:.4f} ms (device {fmt_ms(s_busy)}), {depth} x freq_conv "
+            f"{a_ms:.4f} ms (device {fmt_ms(a_busy)}), plain {p_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({flop:.4e} FLOP), max abs err {err:.3e} of max|plain| {scale:.3e}")
+        out[depth] = {"ms": s_ms, "device_ms": s_busy, "chained_ms": a_ms, "chained_device_ms": a_busy,
+                      "plain_ms": p_ms, "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                      "max_rel_err": err / scale}
+    return out
+
+
 def build_kernels() -> None:
     """Phase 2: one nvcc per CUDA source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from fullycnnspeechenhancement_torch.ops import blocked_dw, build, rced_stack
+    from fullycnnspeechenhancement_torch.ops import blocked_dw, build, freq_conv, rced_stack
 
-    names = ("rced_stack", "blocked_dw")
+    names = ("rced_stack", "blocked_dw", "freq_conv")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -811,6 +1093,7 @@ def build_kernels() -> None:
         seconds = dict(zip(names, pool.map(timed_build, names)))
     rced_stack.load_library()
     blocked_dw.load_library()
+    freq_conv.load_library()
     for name in names:
         log(f"build: {name}.cu in {seconds[name]:.1f} s")
         log_path = f"{build.library_path(name)}.log"
@@ -841,8 +1124,56 @@ def main() -> int:
         stack_entry = run_serving(dev, tmp)
         phase("serving", t0)
         dw_entry = run_training(dev, tmp)
+    t0 = time.perf_counter()
+    probe_path = run_probe_path(dev)
+    phase("probe path", t0)
+    t0 = time.perf_counter()
+    v2 = run_v2_layers(dev, stack_entry)
+    phase("freq_conv at V2 width", t0)
+    t0 = time.perf_counter()
+    chain = run_chain(dev)
+    phase("chains", t0)
 
-    kernels = {"kernels": [stack_entry, dw_entry]}
+    conv_sum, stack_sum = probe_path["summary"]["freq_conv"], probe_path["summary"]["freq_conv_stack"]
+    conv_entry = {
+        "name": "freq_conv",
+        "route": "cuda",
+        "source": "fullycnnspeechenhancement_torch/ops/csrc/freq_conv.cu",
+        "replaces": "benchmarks/micro_pallas_conv.py:54",
+        "also_replaces": [p["name"] for p in probe_path["rows"] if p["kernel"] == "freq_conv"],
+        "launches": conv_sum["launches"],
+        "max_abs_err": max(conv_sum["max_abs_err"], v2["max_abs_err"]),
+        "ms": v2["ms"],
+        "plain_ms": v2["plain_ms"],
+        "bound_ms": v2["bound_ms"],
+        "bound_by": v2["bound_by"],
+        "library_ms": v2["cudnn_ms"],
+        "library": "F.conv2d (cuDNN, TF32 off), one call per layer",
+        "at": "V2's 14 inner layers at 64 x 8 s, summed; launches on the probe path",
+    }
+    deep = chain[max(chain)]
+    chain_entry = {
+        "name": "freq_conv_stack",
+        "route": "cuda",
+        "source": "fullycnnspeechenhancement_torch/ops/csrc/freq_conv.cu",
+        "replaces": "benchmarks/micro_pallas_roll.py:73",
+        "also_replaces": [p["name"] for p in probe_path["rows"] if p["kernel"] == "freq_conv_stack"],
+        "launches": stack_sum["launches"],
+        "max_abs_err": max(stack_sum["max_abs_err"], deep["max_abs_err"]),
+        "max_rel_err": max(stack_sum["max_rel_err"], deep["max_rel_err"]),
+        "ms": deep["ms"],
+        "plain_ms": deep["plain_ms"],
+        "bound_ms": deep["bound_ms"],
+        "bound_by": deep["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes a chain of masked circular convs",
+        "chained_freq_conv_ms": deep["chained_ms"],
+        "at": f"roll2's shape, depth {max(chain)}; launches on the probe path",
+    }
+    entries = [stack_entry, dw_entry, conv_entry, chain_entry]
+    for e in entries:
+        e["kernel_ms"] = e["ms"]
+    kernels = {"kernels": entries}
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({

@@ -15,10 +15,12 @@ import pytest
 import torch
 
 from fullycnnspeechenhancement_torch.models import get_model
-from fullycnnspeechenhancement_torch.ops import blocked_dw, rced_stack
+from fullycnnspeechenhancement_torch.ops import blocked_dw, freq_conv, rced_stack
+from fullycnnspeechenhancement_torch.probes import all_probes
 from fullycnnspeechenhancement_torch.train.checkpoint import params_from_numpy
 
 NAMES = ["FullyCNN", "FullyCNNV2", "FullyCNNV3"]
+PROBES = {p.name: (m, p) for m, p in all_probes()}
 
 
 def numpy_params(name, seed):
@@ -154,3 +156,99 @@ def test_blocked_dw_raises_instead_of_falling_back(cuda_device, bad):
     with pytest.raises(ValueError):
         blocked_dw.blocked_dw(z, dy, kb, 2)
     assert blocked_dw.launches == before
+
+
+def _close_to_plain(got, ref):
+    """f32 sums of up to 352 terms in another order: rtol 1e-5, atol 1e-5 *
+    max|plain|."""
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PROBES))
+def test_probe_kernel_matches_plain_on_cuda(cuda_device, name):
+    """Each probe at its script's shapes: one launch, equal to the plain
+    version on the card."""
+    module, probe = PROBES[name]
+    arrays = module.inputs(np.random.default_rng(0))
+    args = [torch.as_tensor(arrays[a], device=cuda_device) for a in probe.args]
+    counter = "stack_launches" if probe.kernel == "freq_conv_stack" else "launches"
+    before = getattr(freq_conv, counter)
+    got = probe(*args)
+    torch.cuda.synchronize()
+    assert getattr(freq_conv, counter) == before + 1
+    _close_to_plain(got, probe(*args, plain=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [(25, 23, 7), (10, 12, 7), (21, 19, 5), (12, 10, 11)])
+def test_freq_conv_matches_plain_on_v2_layers_on_cuda(cuda_device, layer):
+    """V2 inner-layer shapes on NCHW activations [B, C, T, 129] viewed as
+    [B, T, 129, C], T = 37 frames; the output keeps the NCHW order."""
+    cin, cout, kw = layer
+    g = torch.Generator().manual_seed(kw)
+    x = torch.randn(3, cin, 37, 129, generator=g).to(cuda_device).permute(0, 2, 3, 1)
+    w = torch.randn(kw, cin, cout, generator=g).to(cuda_device)
+    got = freq_conv.freq_conv(x, w)
+    torch.cuda.synchronize()
+    assert got.permute(0, 3, 1, 2).is_contiguous()
+    _close_to_plain(got, freq_conv.freq_conv_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "P,K,lo,dil,circular,period,valid,relu,scale",
+    [(600, 11, None, 1, False, 0, 0, False, 1.0), (600, 5, 7, 3, False, 100, 37, True, 0.5),
+     (517, 3, -2, 1, True, 0, 0, False, 1.0), (1000, 13, 6, 1, True, 250, 129, True, 1e-2),
+     (7, 13, None, 1, False, 0, 0, False, 1.0), (7, 2, 3, 6, True, 0, 0, False, 1.0)],
+)
+def test_freq_conv_options_match_plain_on_cuda(cuda_device, P, K, lo, dil, circular, period,
+                                               valid, relu, scale):
+    """Several tiles of 256 positions with zero or wrapped halos, masks
+    whose period is not the tile, taps wider than the row."""
+    g = torch.Generator().manual_seed(P + K)
+    x = torch.randn(2, 3, P, 6, generator=g).to(cuda_device)
+    w = torch.randn(K, 6, 9, generator=g).to(cuda_device)
+    opts = dict(lo=lo, dilation=dil, circular=circular, period=period, valid=valid, relu=relu,
+                scale=scale)
+    got = freq_conv.freq_conv(x, w, **opts)
+    torch.cuda.synchronize()
+    _close_to_plain(got, freq_conv.freq_conv_plain(x, w, **opts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 5])
+def test_freq_conv_stack_matches_chained_launches_on_cuda(cuda_device, depth):
+    """The chain in one launch against `depth` launches of freq_conv: the
+    same sums in the same order, plus exact zeros."""
+    g = torch.Generator().manual_seed(depth)
+    x = torch.rand(32, 8 * 256, generator=g).to(cuda_device)
+    w = (0.05 * torch.rand(11, 32, 32, generator=g)).to(cuda_device)
+    got = freq_conv.freq_conv_stack(x, w, depth)
+    h = x
+    for _ in range(depth):
+        h = freq_conv.freq_conv(h.t()[None, None], w, circular=True, period=256, valid=129,
+                                relu=True)[0, 0].t()
+    torch.cuda.synchronize()
+    _close_to_plain(got, h)
+    _close_to_plain(got, freq_conv.freq_conv_stack_plain(x, w, depth))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float64", "taps", "w_shape", "stack_strided", "stack_halo"])
+def test_freq_conv_raises_instead_of_falling_back(cuda_device, bad):
+    x = torch.rand(1, 2, 129, 5, device=cuda_device)
+    w = torch.rand(11, 5, 6, device=cuda_device)
+    xs = torch.rand(4, 512, device=cuda_device)
+    ws = torch.rand(11, 4, 4, device=cuda_device)
+    calls = {
+        "float64": lambda: freq_conv.freq_conv(x.double(), w.double()),
+        "taps": lambda: freq_conv.freq_conv(x, torch.rand(14, 5, 6, device=cuda_device)),
+        "w_shape": lambda: freq_conv.freq_conv(x, w[:, :4]),
+        "stack_strided": lambda: freq_conv.freq_conv_stack(xs.t().contiguous().t(), ws, 2),
+        "stack_halo": lambda: freq_conv.freq_conv_stack(xs, ws, 2, valid=253),
+    }
+    before = (freq_conv.launches, freq_conv.stack_launches)
+    with pytest.raises(ValueError):
+        calls[bad]()
+    assert (freq_conv.launches, freq_conv.stack_launches) == before
