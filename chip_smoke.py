@@ -11,7 +11,7 @@ for an H100) and `nvcc`.  It imports only the port
   2. builds the CUDA kernels for sm_90a, one `nvcc` per source, started
      together (`ops/csrc/rced_stack.cu`, `ops/csrc/blocked_dw.cu`,
      `ops/csrc/freq_conv.cu`), and prints their ptxas lines and build
-     times;
+     times; beside them, a probe of mma.sync's TF32 rate (MMA_RATE_SRC);
 
   The serving path (the fused inference kernel, `rced_stack`):
   3. builds two V2 inference engines at full width from one npz of random
@@ -53,9 +53,12 @@ for an H100) and `nvcc`.  It imports only the port
      through the blocked model against autograd of the raw conv;
  11. times the kernel over the 14 layers of one step, its plain version
      and `torch.nn.grad.conv2d_weight` (cuDNN backward-filter, the
-     yardstick) with CUDA events, the whole train step with dw_pallas on
-     and off, the device-busy time of one steps_per_call=8 dispatch, and
-     which ops launch cuDNN's layout conversions in one train step;
+     yardstick) with CUDA events, beside the kernel's 3xTF32 bound (and
+     the float32 one), the products its launch plan pads in, and the
+     rate of mma.sync TF32 alone on this card; then the whole train step
+     with dw_pallas on and off, the device-busy time of one
+     steps_per_call=8 dispatch, and which ops launch cuDNN's layout
+     conversions in one train step;
 
   The kernel-probe path (the frequency-conv kernels, `freq_conv` and
   `freq_conv_stack`):
@@ -94,8 +97,10 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense, no tensor cores for float32).
+# H100 SXM data-sheet peaks (dense): float32 without tensor cores, TF32
+# on them.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 MAIN_TOL = 1e-4  # engine outputs: atol = MAIN_TOL * max|reference|
 SR = 8000
@@ -582,7 +587,7 @@ def dw_work(shapes, rows: int, nb: int, kb: int, dc: int):
     return flop, nbytes
 
 
-def run_training(dev, tmp: str) -> dict:
+def run_training(dev, tmp: str, mma_rate_lib: str) -> dict:
     """Phases 8-11: the training path through the dW kernel.  Returns the
     `blocked_dw` entry of the `kernels` line."""
     from fullycnnspeechenhancement_torch import Config, ModelConfig, load_ini_config
@@ -738,6 +743,7 @@ def run_training(dev, tmp: str) -> dict:
     # -- 11. timings -----------------------------------------------------------
     t0 = time.perf_counter()
     rows_full = B_TRAIN * T_BUCKET
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     k_ms = p_ms = lib_ms = 0.0
     for name, ci, co in shapes:
         z = torch.randn(B_TRAIN, T_BUCKET, nb, ci, device=dev, generator=gen)
@@ -751,17 +757,38 @@ def run_training(dev, tmp: str) -> dict:
         layer_k = cuda_ms(lambda: blocked_dw.blocked_dw(z, dy, kb, dc), reps=10)
         layer_p = cuda_ms(lambda: blocked_dw.blocked_dw_plain(z, dy, kb, dc), reps=2, warmup=1)
         layer_lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(zpad, (co, ci, 1, kb), go), reps=10)
+        plan = blocked_dw.launch_plan(rows_full, nb, ci, co, kb, sm_count,
+                                      blocked_dw.card_blocks_per_sm(kb, dev))
+        blocks, slots = plan.tiles * plan.splits, sm_count * plan.blocks_per_sm
         log(f"  {name} Ci={ci} Co={co}: kernel {layer_k:.3f} ms, plain {layer_p:.3f} ms, "
-            f"conv2d_weight {layer_lib:.3f} ms")
+            f"conv2d_weight {layer_lib:.3f} ms; plan {plan.tiles} tiles x {plan.splits} splits "
+            f"of {plan.rows_per_split} rows, {plan.blocks_per_sm} blocks per SM at "
+            f"{plan.smem_bytes} B, {blocks / (-(-blocks // slots) * slots):.3f} of the waves' slots")
         k_ms, p_ms, lib_ms = k_ms + layer_k, p_ms + layer_p, lib_ms + layer_lib
         del z, dy, zpad, go, lib, got
     flop, nbytes = dw_work(shapes, rows_full, nb, kb, dc)
-    t_ops, t_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    # 3xTF32 issues three TF32 products for each float32 one
+    t_ops, t_simt = 3 * flop / PEAK_TF32_FLOPS * 1e3, flop / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
+    # the products the kernel computes: its tiles pad Ci and Co to TILE,
+    # and each row's nbp = NB + KB - 1 staged positions run all KB taps
+    tile = blocked_dw.TILE
+    padded = sum(-(-ci // tile) * -(-co // tile) * tile * tile for _, ci, co in shapes) / sum(
+        ci * co for _, ci, co in shapes)
+    nbp = nb + kb - 1
+    computed = padded * nbp * kb / sum(max(0, nb - abs(d - dc)) for d in range(kb))
+    rate = mma_sync_tf32_tflops(mma_rate_lib)
+    floor_ms = 3 * flop * computed / (rate * 1e12) * 1e3
     log(f"timing blocked_dw over V2's 14 layers at {B_TRAIN} x 8 s (B*T={rows_full}): kernel {k_ms:.3f} ms, "
         f"plain {p_ms:.3f} ms, conv2d_weight (cuDNN) {lib_ms:.3f} ms")
-    log(f"bound: {flop:.4e} FLOP -> {t_ops:.3f} ms at 67 TFLOP/s; {nbytes:.4e} B -> {t_bytes:.3f} ms "
-        f"at 3.35 TB/s; kernel at {100 * bound_ms / k_ms:.1f}% of bound")
+    log(f"bound: {flop:.4e} FLOP -> {t_ops:.3f} ms in 3xTF32 at 495 TFLOP/s ({t_simt:.3f} ms in float32 "
+        f"at 67 TFLOP/s); {nbytes:.4e} B -> {t_bytes:.3f} ms at 3.35 TB/s; kernel at "
+        f"{100 * bound_ms / k_ms:.1f}% of the 3xTF32 bound, {100 * t_simt / k_ms:.1f}% of the float32 one")
+    log(f"launch plan: tiles pad the products {padded:.4f}x, staging pads K {nbp / nb:.4f}x "
+        f"(nbp {nbp} / NB {nb}); the kernel computes {computed:.4f}x the needed products; "
+        f"mma.sync TF32 alone runs at {rate:.1f} TFLOP/s here, so its floor is {floor_ms:.3f} ms "
+        f"(kernel at {100 * floor_ms / k_ms:.1f}% of it)")
 
     # whole train steps, dw_pallas on and off in turns (on, off, off, on)
     audio_s = float(sum(b.lengths.sum() for b in batches[:1])) / SR
@@ -812,8 +839,13 @@ def run_training(dev, tmp: str) -> dict:
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_by": "operations, 3xTF32 tensor cores" if t_ops >= t_bytes else "bytes",
         "library_ms": lib_ms,
+        "bound_fp32_simt_ms": max(t_simt, t_bytes),
+        "padded_product_ratio": padded,
+        "k_padding_ratio": nbp / nb,
+        "mma_sync_tf32_tflops": rate,
+        "mma_sync_floor_ms": floor_ms,
     }
 
 
@@ -1076,8 +1108,71 @@ def run_chain(dev) -> dict:
     return out
 
 
-def build_kernels() -> None:
-    """Phase 2: one nvcc per CUDA source, all started together."""
+# The rate of independent mma.sync.m16n8k8 TF32 products when nothing else
+# is issued, A and B from 2 and 8 register sets as in blocked_dw.cu: the
+# most that kernel's instruction could give, beside the data sheet's 495
+# TFLOP/s (which wgmma reaches).
+MMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void __launch_bounds__(128) mma_rate(float* out, int iters) {
+  uint32_t a[2][4], b[8][2];
+  for (int i = 0; i < 2; ++i) for (int c = 0; c < 4; ++c) a[i][c] = threadIdx.x * (i + 3) + c;
+  for (int i = 0; i < 8; ++i) for (int c = 0; c < 2; ++c) b[i][c] = threadIdx.x * (i + 5) + c;
+  float acc[16][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                   : "+f"(acc[n][0]), "+f"(acc[n][1]), "+f"(acc[n][2]), "+f"(acc[n][3])
+                   : "r"(a[n / 8][0]), "r"(a[n / 8][1]), "r"(a[n / 8][2]), "r"(a[n / 8][3]),
+                     "r"(b[n % 8][0]), "r"(b[n % 8][1]));
+    a[it & 1][0] ^= it;
+    b[it & 7][0] ^= it;
+  }
+  float s = 0.f;
+  for (int n = 0; n < 16; ++n) s += acc[n][0] + acc[n][1] + acc[n][2] + acc[n][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_rate_launch(float* out, int blocks, int iters) {
+  mma_rate<<<blocks, 128>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def build_mma_rate() -> str:
+    """Compiles MMA_RATE_SRC into the package's build directory."""
+    from fullycnnspeechenhancement_torch.ops import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, lib = build.BUILD_DIR / "mma_rate.cu", build.BUILD_DIR / "libmma_rate.so"
+    src.write_text(MMA_RATE_SRC)
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True, text=True)
+    return str(lib)
+
+
+def mma_sync_tf32_tflops(lib_path: str) -> float:
+    """TFLOP/s of MMA_RATE_SRC's kernel: 16 warps per SM, 16 independent
+    accumulators each, timed with CUDA events after a warm-up."""
+    import ctypes
+
+    lib = ctypes.CDLL(lib_path)
+    lib.mma_rate_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 128, device="cuda")
+    iters = 10000
+    if lib.mma_rate_launch(out.data_ptr(), blocks, 100) != 0:
+        raise RuntimeError("mma_rate launch failed")
+    ms = cuda_ms(lambda: lib.mma_rate_launch(out.data_ptr(), blocks, iters), reps=3, warmup=1)
+    return blocks * 4 * iters * 16 * 2048 / ms / 1e9
+
+
+def build_kernels() -> str:
+    """Phase 2: one nvcc per CUDA source, all started together, and the
+    mma.sync rate probe beside them; returns the probe's library."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fullycnnspeechenhancement_torch.ops import blocked_dw, build, freq_conv, rced_stack
@@ -1089,8 +1184,10 @@ def build_kernels() -> None:
         build.build(name)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        probe = pool.submit(build_mma_rate)
         seconds = dict(zip(names, pool.map(timed_build, names)))
+        probe_lib = probe.result()
     rced_stack.load_library()
     blocked_dw.load_library()
     freq_conv.load_library()
@@ -1101,6 +1198,7 @@ def build_kernels() -> None:
             for line in open(log_path).read().splitlines():
                 if "registers" in line or "smem" in line or "spill" in line or "entry function" in line:
                     log(f"  ptxas: {line.strip()}")
+    return probe_lib
 
 
 def main() -> int:
@@ -1117,13 +1215,13 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    build_kernels()
+    mma_rate_lib = build_kernels()
     phase("build", t0)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         stack_entry = run_serving(dev, tmp)
         phase("serving", t0)
-        dw_entry = run_training(dev, tmp)
+        dw_entry = run_training(dev, tmp, mma_rate_lib)
     t0 = time.perf_counter()
     probe_path = run_probe_path(dev)
     phase("probe path", t0)

@@ -27,24 +27,100 @@ channels-last view handed to cuDNN.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from fullycnnspeechenhancement_torch.ops import build
 
-TILE = 64  # ci and co per block (csrc/blocked_dw.cu kTile)
 MAX_KB = 8  # taps the kernel is instantiated for
-STAGE_SMEM_BYTES = 48 * 1024  # shared memory aimed at for one block's stage
+TILE = 32  # co and ci per block (csrc kBm, kBn)
+ROW_PAD = 4  # floats after each staged position's channels (csrc kRowPad)
+STAGE_POSITIONS = 80  # flat K positions (rows x nbp) aimed at per stage
 SMEM_BYTES = 232_448  # the most shared memory one Hopper block can use
-MAX_STAGE_ROWS = 4
-WAVES = 4  # blocks aimed at per SM, over all row splits
+SM_SMEM_BYTES = 233_472  # shared memory of one SM; each block also takes 1 KiB
+MAX_WAVES = 4  # waves of blocks the row splits may take
 
 # Kernel launches since the count was last set to 0.
 launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
+_occupancy: dict = {}
+
+
+class Plan(NamedTuple):
+    """How one `blocked_dw` launch covers its problem: `tiles` blocks of
+    TILE co by TILE ci per row split, stages of `stage_rows` rows
+    (`smem_bytes` of shared memory for two, `blocks_per_sm` resident blocks
+    at that), and `splits` row splits of `rows_per_split` rows."""
+
+    stage_rows: int
+    smem_bytes: int
+    blocks_per_sm: int
+    tiles: int
+    rows_per_split: int
+    splits: int
+
+
+def stage_rows_for(nb: int, kb: int) -> int:
+    """Rows per stage: a multiple of the fewest whose nbp = NB + KB - 1
+    positions each make whole k8 chunks, with about STAGE_POSITIONS
+    positions in all."""
+    nbp = nb + kb - 1
+    step = 8 // math.gcd(nbp, 8)
+    return step * max(1, STAGE_POSITIONS // (step * nbp))
+
+
+def smem_bytes(stage_rows: int, nb: int, kb: int) -> int:
+    """Shared memory of one block, two stages (csrc `blocked_dw_smem_bytes`):
+    dy [P, TILE + 4] and z [P + KB - 1, TILE + 4] floats, P = stage_rows * nbp."""
+    positions = stage_rows * (nb + kb - 1)
+    return 2 * 4 * (2 * positions + kb - 1) * (TILE + ROW_PAD)
+
+
+def model_blocks_per_sm(kb: int, smem: int) -> int:
+    """Resident blocks per SM of the KB instance as its registers (its
+    __launch_bounds__: 4 blocks up to KB = 5, 3 above) and `smem` allow,
+    without asking the card (on the card the wrapper asks the CUDA
+    occupancy calculator)."""
+    return min(4 if kb <= 5 else 3, SM_SMEM_BYTES // (smem + 1024))
+
+
+def launch_plan(rows: int, nb: int, ci: int, co: int, kb: int, sm_count: int,
+                blocks_per_sm: Optional[Callable[[int], int]] = None) -> Plan:
+    """The stage (`stage_rows_for`) and the row splits, at least one stage
+    of rows each, whose blocks best fill whole waves of sm_count *
+    blocks_per_sm(smem) resident blocks (`model_blocks_per_sm` when not
+    given)."""
+    stage_rows = stage_rows_for(nb, kb)
+    smem = smem_bytes(stage_rows, nb, kb)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"blocked_dw: NB={nb}, KB={kb} needs {smem} B of shared memory per block")
+    per_sm = blocks_per_sm(smem) if blocks_per_sm else model_blocks_per_sm(kb, smem)
+    if per_sm < 1:
+        raise ValueError(f"blocked_dw: no block of {smem} B of shared memory fits an SM")
+    tiles = -(-ci // TILE) * -(-co // TILE)
+    slots = sm_count * per_sm
+    stages = -(-rows // stage_rows)
+
+    def rows_per(splits: int) -> int:  # whole stages per split
+        return -(-rows // (splits * stage_rows)) * stage_rows
+
+    def fill(splits: int) -> float:  # the share of the waves' slots used
+        blocks = tiles * -(-rows // rows_per(splits))
+        return blocks / (-(-blocks // slots) * slots)
+
+    # the split count whose blocks fill their waves best, over up to
+    # MAX_WAVES waves beyond the fewest the tiles need (fewer on ties)
+    least = -(-tiles // slots)
+    splits = max(
+        (max(1, min(stages, w * slots // tiles)) for w in range(least, least + MAX_WAVES)),
+        key=lambda s: (fill(s), -s),
+    )
+    rows_per_split = rows_per(splits)
+    return Plan(stage_rows, smem, per_sm, tiles, rows_per_split, -(-rows // rows_per_split))
 
 
 def blocked_dw_plain(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Tensor:
@@ -70,26 +146,37 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
+        lib.blocked_dw_blocks_per_sm.restype = ctypes.c_int
+        lib.blocked_dw_blocks_per_sm.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ]
         lib.blocked_dw_error_string.restype = ctypes.c_char_p
         lib.blocked_dw_error_string.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
 
 
-def launch_plan(rows: int, nb: int, ci: int, co: int, kb: int, sm_count: int):
-    """(stage_rows, rows_per_split, splits) for the kernel: as many rows per
-    shared-memory stage as fit STAGE_SMEM_BYTES (at most MAX_STAGE_ROWS),
-    and enough row splits that the (ci, co) tiles times the splits give
-    about WAVES blocks per SM, each split at least one stage long."""
-    per_row = 4 * (2 * nb + kb - 1) * TILE
-    if per_row > SMEM_BYTES:
-        raise ValueError(f"blocked_dw: NB={nb} needs {per_row} B of shared memory per row")
-    stage_rows = max(1, min(MAX_STAGE_ROWS, STAGE_SMEM_BYTES // per_row))
-    tiles = -(-ci // TILE) * -(-co // TILE)
-    splits = max(1, min(-(-rows // stage_rows), -(-WAVES * sm_count // tiles)))
-    rows_per_split = -(-rows // splits)
-    rows_per_split = -(-rows_per_split // stage_rows) * stage_rows
-    return stage_rows, rows_per_split, -(-rows // rows_per_split)
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"blocked_dw {what} failed: {lib.blocked_dw_error_string(rc).decode()} ({rc})")
+
+
+def card_blocks_per_sm(kb: int, device: torch.device) -> Callable[[int], int]:
+    """blocks_per_sm(smem) of the KB instance on `device`, from the CUDA
+    occupancy calculator (registers and shared memory), cached."""
+    lib = load_library()
+
+    def blocks(smem: int) -> int:
+        key = (device.index, kb, smem)
+        if key not in _occupancy:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                rc = lib.blocked_dw_blocks_per_sm(kb, smem, ctypes.byref(n))
+            _check(lib, rc, "occupancy query")
+            _occupancy[key] = n.value
+        return _occupancy[key]
+
+    return blocks
 
 
 def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Tensor:
@@ -116,23 +203,20 @@ def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Ten
     if rows < 1 or nb < 1 or ci < 1 or co < 1:
         raise ValueError(f"blocked_dw got an empty tensor {tuple(z.shape)}, {tuple(dy.shape)}")
     sm_count = torch.cuda.get_device_properties(z.device).multi_processor_count
-    stage_rows, rows_per_split, splits = launch_plan(rows, nb, ci, co, kb, sm_count)
-    global launches
     lib = load_library()
+    plan = launch_plan(rows, nb, ci, co, kb, sm_count, card_blocks_per_sm(kb, z.device))
+    global launches
     out = torch.empty(1, kb, ci, co, dtype=torch.float32, device=z.device)
-    part = out if splits == 1 else torch.empty(
-        splits, kb, ci, co, dtype=torch.float32, device=z.device
+    part = out if plan.splits == 1 else torch.empty(
+        plan.splits, kb, ci, co, dtype=torch.float32, device=z.device
     )
     with torch.cuda.device(z.device):
         rc = lib.blocked_dw_forward(
             z.data_ptr(), dy.data_ptr(), out.data_ptr(), part.data_ptr(),
-            rows, nb, ci, co, kb, dc, rows_per_split, splits, stage_rows,
+            rows, nb, ci, co, kb, dc, plan.rows_per_split, plan.splits, plan.stage_rows,
             torch.cuda.current_stream(z.device).cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"blocked_dw launch failed: {lib.blocked_dw_error_string(rc).decode()} ({rc})"
-        )
+    _check(lib, rc, "launch")
     launches += 1
     return out
 

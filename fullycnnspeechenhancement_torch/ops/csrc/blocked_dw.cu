@@ -14,117 +14,349 @@
 //
 // What bounds it on an H100: arithmetic.  For V2's 14 inner layers at
 // batch 64 x 8 s (R = 32,768, NB = 17, KB = 4, dc = 2, sum of Ci*Co =
-// 286,720), tap d pairs NB - |d - dc| real z blocks with dy (64 of the 68
-// block pairs), so the contraction needs 1.203e12 FLOP, 17.95 ms at the
-// 67 TFLOP/s float32 rate without tensor cores, while reading z and dy
-// once is 8.66e9 bytes, 2.59 ms at 3.35 TB/s.  This kernel also multiplies
-// the 4 pairs that meet its zero halo.
+// 286,720), tap d pairs NB - |d - dc| real z blocks with dy, so the
+// contraction needs 1.2026e12 FLOP.  This kernel runs it on the tensor
+// cores in 3xTF32, three TF32 products for each float32 one, so its bound
+// is 3 x 1.2026e12 FLOP at the 495 TFLOP/s dense TF32 rate: 7.29 ms
+// (17.95 ms at the 67 TFLOP/s float32 rate without tensor cores).
+// Reading z and dy once is 8.66e9 bytes, 2.59 ms at 3.35 TB/s.
 //
-// What the design does about it.  The TPU kernel walks a sequential grid
-// of 128-row tiles and keeps one [KB, Ci, Co] accumulator resident in
-// VMEM across it.  Hopper blocks run in parallel and carry nothing over,
-// so here a block owns a 64 x 64 (ci, co) output tile for all KB taps and
-// one contiguous share (split) of the rows.  It stages `kStageRows` rows
-// of z and dy at a time in shared memory; the z rows carry zero halos of
-// dc and KB-1-dc blocks, so the tap shift n + d - dc is a plain offset
-// read (as rced_stack.cu's halos replaced the TPU lane roll).  Each of
-// the 256 threads keeps 4 ci x 4 co x KB sums in registers: per (row,
-// block) one float4 of dy and KB float4s of z from shared memory feed
-// 16*KB fused multiply-adds, and dy is reused across the taps.  The
-// splits fill the card's SMs; each writes its partial sums to a scratch
-// buffer [splits, KB, Ci, Co] that the caller allocates, and a second
-// kernel adds the splits in a fixed order.  No atomics, so a run repeats
-// bit for bit.  Ragged ends (rows past a split, channels past Ci or Co)
-// are staged as zeros.  Float32 operands and sums; tensor cores (wgmma),
-// TMA and a bf16 mode are later work.
+// What the design does about it.
+// - The contraction is a GEMM per tap over one flat index K = (row, block
+//   position): dW^T[d] = A B_d with A[co, p] = dy at p and B_d[p, ci] = z
+//   at p + d.  Each stage of `stage_rows` rows is staged in shared memory
+//   with the row stride nbp = NB + KB - 1 for both operands: dy at
+//   p = rr*nbp + n (its KB-1 extra positions per row are zeros), z at
+//   p + dc (dc zero halo positions before its NB blocks, KB-1-dc after),
+//   and KB-1 zero z positions after the stage.  Tap d's z then sits at
+//   p + d for every row, so the tap shift is a uniform offset along K,
+//   at a cost of nbp/NB (20/17 = 1.18x on V2) in products against zeros.
+// - Tensor cores at float32 accuracy (3xTF32), with mma.sync.m16n8k8:
+//   every operand x is split, as its fragment is loaded, into big = x with
+//   its 13 low mantissa bits cleared (a TF32 value) and small = the same
+//   of x - big (exact), and each product is accumulated in float32 as
+//   small_a*big_b + big_a*small_b + big_a*big_b, one pass of each over all
+//   of a warp's accumulators.  TF32 alone keeps about 3 digits; the split
+//   keeps x to 2^-20 of itself.  Two bitwise ANDs and a subtraction do the
+//   split: cvt.rna.tf32 would go through the conversion path, which the
+//   CUDA guide's throughput table gives a quarter of the bitwise rate.
+//   The split is done in registers, not at staging time: hi and lo copies
+//   in shared memory would double the stage and its fragment loads.  wgmma
+//   would want both TF32 operands K-major in shared memory, and here K
+//   (the row index) is the slow index of both z and dy: that needs a
+//   transpose and is later work.
+// - Tensor cores add into their accumulators with truncation, which
+//   biases long sums toward zero: on an H100, one accumulator over a few
+//   thousand rows of V2's layers missed DW_TOL (chip_smoke.py).  So a
+//   block adds its accumulators to its float32 partial sums, rounding to
+//   nearest, every kFlushPositions positions and restarts them from zero.
+// - Operand roles: dy, loaded once per k8 chunk and reused by all KB taps,
+//   is the A operand (M = co, m16 fragments); z, reloaded at the shift of
+//   each tap, is B (N = ci, n8 fragments).  Within a k8 chunk, mma's k = t
+//   and t + 4 stand for positions 2t and 2t + 1, so tap d + 1's first z
+//   fragment is tap d's second: KB taps load KB + 1 z positions, not 2 KB.
+//   A block of 4 warps owns a 32 co x 32 ci tile for all taps, each warp
+//   16 co x 16 ci x KB accumulators, and lane g's two co and two ci are
+//   adjacent, so each fragment load is one 8-byte load.  Small blocks
+//   (4 resident per SM) ran faster on V2's layers than 64-wide ones (2
+//   per SM) and pad Ci x Co by 1.18x, no more.  Staged rows have a stride
+//   of 32 + 4 floats, so a warp's 8-byte loads `base + 2t*ld + 2g` hit
+//   distinct banks.
+// - cp.async double buffering: two stages in shared memory; the next
+//   stage's 16-byte cp.async.cg copies fly while the tensor cores work on
+//   this one.  Rows past a split and channels past Ci or Co are zero-filled
+//   by the copy's src-size; where Ci or Co is not a multiple of 4 (or a
+//   pointer is not 16-byte aligned) every float is its own 4-byte copy.
+//   The zero halos and pads of both buffers are written once, before the
+//   loop: the copies never touch them.
+// - Blocks run in parallel and carry nothing over, so the rows are cut
+//   into splits that, times the tiles, fill whole waves of the card; each
+//   split writes its partial sums to a scratch buffer [splits, KB, Ci, Co]
+//   that the caller allocates, and a second kernel adds the splits in a
+//   fixed order.  No atomics, so a run repeats bit for bit.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase 11) it runs
+// V2's 14 layers in 33.0 ms, against 60.1 ms for cuDNN's backward-filter;
+// mma.sync's TF32 products alone run at 251.5 TFLOP/s there, which puts
+// the floor of this design (1.47x the needed products, 3 passes) at
+// 21.1 ms.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 64;     // ci and co per block
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each per tap
+constexpr int kWarpsM = 2;  // warps along co
+constexpr int kWarpsN = 2;  // warps along ci
+constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kWm = 1;  // m16 fragments (16 co) per warp
+constexpr int kWn = 2;  // n8 fragments (8 ci) per warp
+constexpr int kBm = 16 * kWm * kWarpsM;  // co per block
+constexpr int kBn = 8 * kWn * kWarpsN;   // ci per block
+
+// Resident blocks per SM that the registers must allow: 4 (128 registers
+// a thread) up to KB = 5, 3 above, where 128 would spill.
+__host__ __device__ constexpr int min_blocks(int kb) { return kb <= 5 ? 4 : 3; }
 constexpr int kMaxKb = 8;
+constexpr int kRowPad = 4;  // floats after each staged position's channels
+// K positions a block multiplies into its tensor-core accumulators before
+// it adds them to its float32 partial sums (see dw_mma_kernel).
+constexpr int kFlushPositions = 4096;
 
+struct Params {
+  const float* z;
+  const float* dy;
+  float* part;
+  long long rows;
+  long long rows_per_split;
+  int nb, ci, co, dc;
+  int stage_rows;  // rows per stage; stage_rows * (nb + KB - 1) % 8 == 0
+  int vec;         // floats per copy: 4 (16-byte cp.async) or 1
+};
+
+// x = big + small + O(2^-20 |x|): big is x with its 13 low mantissa bits
+// cleared (a TF32 value), x - big is exact, and small is that with its
+// own 13 low bits cleared.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// One float (VEC 1) or four (VEC 4) from global to shared memory, or zeros
+// where `ok` is false (src-size 0: nothing is read).
+template <int VEC>
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (VEC == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(ok ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(ok ? 4 : 0));
+  }
+}
+
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// N consecutive floats from shared memory (N = 1, 2 or 4, aligned).
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// Floats of one shared-memory stage: dy [P][kBm + 4], then z [P + KB - 1][kBn + 4].
+__host__ __device__ inline int stage_floats(int stage_rows, int nb, int kb) {
+  const int positions = stage_rows * (nb + kb - 1);
+  return positions * (kBm + kRowPad) + (positions + kb - 1) * (kBn + kRowPad);
+}
+
+// Copies one operand of the rows [pos0, pos0 + npos) (flat (row, block)
+// positions; those at or past pos_end are zero-filled) into a stage:
+// block n of row rr to position rr*nbp + n + shift, `width` channels from
+// channel c0 of `src`'s `channels`, VEC floats a copy.  Each thread keeps
+// one channel offset and walks the positions without dividing.
+template <int WIDTH, int VEC>
+__device__ __forceinline__ void load_operand(float* dst, const float* src, int channels, int c0,
+                                             long long pos0, long long pos_end, int npos,
+                                             int nb, int nbp, int shift) {
+  constexpr int per_pos = WIDTH / VEC, step = kThreads / per_pos;
+  static_assert(kThreads % per_pos == 0, "a thread keeps one channel offset");
+  const int c = (threadIdx.x % per_pos) * VEC;
+  int q = threadIdx.x / per_pos;
+  int rr = q / nb, n = q - rr * nb;
+  const bool col_ok = c0 + c < channels;
+  const float* from = src + (pos0 + q) * channels + c0 + c;
+  for (; q < npos; q += step) {
+    const bool ok = col_ok && pos0 + q < pos_end;
+    copy_async<VEC>(dst + (rr * nbp + n + shift) * (WIDTH + kRowPad) + c, ok ? from : src, ok);
+    from += static_cast<long long>(step) * channels;
+    for (n += step; n >= nb; n -= nb) ++rr;
+  }
+}
+
+// Copies the rows [r0, r0 + stage_rows) of this block's tile into one
+// stage: dy's block n to position rr*nbp + n, z's to rr*nbp + n + dc.
+// Rows at or past r_end are zero-filled.
+__device__ __forceinline__ void load_stage(const Params& p, float* ds, float* zs, long long r0,
+                                           long long r_end, int nbp, int co0, int ci0) {
+  const long long pos0 = r0 * p.nb, pos_end = r_end * p.nb;
+  const int npos = p.stage_rows * p.nb;
+  if (p.vec == 4) {
+    load_operand<kBm, 4>(ds, p.dy, p.co, co0, pos0, pos_end, npos, p.nb, nbp, 0);
+    load_operand<kBn, 4>(zs, p.z, p.ci, ci0, pos0, pos_end, npos, p.nb, nbp, p.dc);
+  } else {
+    load_operand<kBm, 1>(ds, p.dy, p.co, co0, pos0, pos_end, npos, p.nb, nbp, 0);
+    load_operand<kBn, 1>(zs, p.z, p.ci, ci0, pos0, pos_end, npos, p.nb, nbp, p.dc);
+  }
+}
+
+// The fragments' index maps.  Within a k8 chunk at k0, mma's k = t and
+// t + 4 stand for positions k0 + 2t and k0 + 2t + 1.  A warp covers
+// 16 WM co and 8 WN ci, and lane g holds co 2WM*g ..
+// 2WM*g + 2WM-1 and ci WN*g .. WN*g + WN-1, each as one vector load:
+// m16 fragment i's rows g and g + 8 are co 2WM*g + 2i and + 1, and n8
+// fragment j's column g is ci WN*g + j.
 template <int KB>
-__global__ void __launch_bounds__(kThreads)
-dw_partial_kernel(const float* __restrict__ z, const float* __restrict__ dy,
-                  float* __restrict__ part, long long rows, int nb, int ci, int co, int dc,
-                  long long rows_per_split, int stage_rows) {
+__global__ void __launch_bounds__(kThreads, min_blocks(KB)) dw_mma_kernel(const Params p) {
+  constexpr int WM = kWm, WN = kWn, BM = kBm, BN = kBn;
+  constexpr int ldm = BM + kRowPad, ldn = BN + kRowPad;
   extern __shared__ __align__(16) float sm[];
-  const int nbp = nb + KB - 1;  // z blocks with halos
-  float* zs = sm;                                  // [stage_rows][nbp][kTile]
-  float* ds = sm + stage_rows * nbp * kTile;       // [stage_rows][nb][kTile]
-  const int ci0 = blockIdx.x * kTile;
-  const int co0 = blockIdx.y * kTile;
-  const long long r_begin = static_cast<long long>(blockIdx.z) * rows_per_split;
-  long long r_end = r_begin + rows_per_split;
-  if (r_end > rows) r_end = rows;
-  const int tx = threadIdx.x & 15;  // co group
-  const int ty = threadIdx.x >> 4;  // ci group
+  const int nbp = p.nb + KB - 1;
+  const int P = p.stage_rows * nbp;  // K positions per stage, a multiple of 8
+  const int sf = stage_floats(p.stage_rows, p.nb, KB);
+  const int ci0 = blockIdx.x * BN;
+  const int co0 = blockIdx.y * BM;
+  const long long r_begin = static_cast<long long>(blockIdx.z) * p.rows_per_split;
+  const long long r_end = r_begin + p.rows_per_split < p.rows ? r_begin + p.rows_per_split : p.rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // the fragments' groupID, thread in group
+  const int warp_co = (warp / kWarpsN) * 16 * WM;
+  const int warp_ci = (warp % kWarpsN) * 8 * WN;
 
-  // The halos (block positions p < dc and p >= dc + nb) stay zero; the
-  // staging below writes only dc <= p < dc + nb.
-  for (int i = threadIdx.x; i < stage_rows * nbp * kTile; i += kThreads) zs[i] = 0.f;
-
-  float acc[KB][4][4];
-#pragma unroll
-  for (int d = 0; d < KB; ++d)
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[d][a][b] = 0.f;
-
-  for (long long r0 = r_begin; r0 < r_end; r0 += stage_rows) {
-    __syncthreads();  // the previous stage is consumed (and the halos zeroed)
-    const int n_stage = stage_rows * nb * kTile;
-    for (int i = threadIdx.x; i < n_stage; i += kThreads) {
-      const int c = i & (kTile - 1);
-      const int t = i >> 6;
-      const int n = t % nb;
-      const int rr = t / nb;
-      const long long r = r0 + rr;
-      const bool row_ok = r < r_end;
-      float zv = 0.f, dv = 0.f;
-      if (row_ok && ci0 + c < ci) zv = __ldg(z + (r * nb + n) * ci + ci0 + c);
-      if (row_ok && co0 + c < co) dv = __ldg(dy + (r * nb + n) * co + co0 + c);
-      zs[(rr * nbp + n + dc) * kTile + c] = zv;
-      ds[(rr * nb + n) * kTile + c] = dv;
-    }
-    __syncthreads();
-    for (int rr = 0; rr < stage_rows; ++rr) {
-      const float* zr = zs + rr * nbp * kTile + ty * 4;
-      const float* dr = ds + rr * nb * kTile + tx * 4;
-      for (int n = 0; n < nb; ++n) {
-        const float4 dv = *reinterpret_cast<const float4*>(dr + n * kTile);
-        const float dvs[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-        for (int d = 0; d < KB; ++d) {
-          // zpad[n + d - dc] sits at halo position n + d.
-          const float4 zv = *reinterpret_cast<const float4*>(zr + (n + d) * kTile);
-          const float zvs[4] = {zv.x, zv.y, zv.z, zv.w};
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 4; ++b) acc[d][a][b] = fmaf(zvs[a], dvs[b], acc[d][a][b]);
-        }
+  // Zero the halos and pads of both stages once; the copies below write
+  // only dy's positions n < nb and z's dc <= n < dc + nb of each row.
+  if constexpr (KB > 1) {
+    for (int b = 0; b < 2; ++b) {
+      float* ds = sm + b * sf;
+      float* zs = ds + P * ldm;
+      for (int i = threadIdx.x; i < p.stage_rows * (KB - 1) * ldm; i += kThreads) {
+        const int q = i / ldm, c = i - q * ldm;
+        const int rr = q / (KB - 1), h = q - rr * (KB - 1);
+        ds[(rr * nbp + p.nb + h) * ldm + c] = 0.f;
+      }
+      for (int i = threadIdx.x; i < (p.stage_rows + 1) * (KB - 1) * ldn; i += kThreads) {
+        const int q = i / ldn, c = i - q * ldn;
+        const int rr = q / (KB - 1), h = q - rr * (KB - 1);
+        const int pos = rr < p.stage_rows ? rr * nbp + (h < p.dc ? h : p.nb + h) : P + h;
+        zs[pos * ldn + c] = 0.f;
       }
     }
   }
 
-  float* out = part + static_cast<long long>(blockIdx.z) * KB * ci * co;
+  float acc[KB][WM][WN][4];
 #pragma unroll
   for (int d = 0; d < KB; ++d)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ci0 + ty * 4 + a;
-      if (i >= ci) continue;
+    for (int i = 0; i < WM; ++i)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int o = co0 + tx * 4 + b;
-        if (o < co) out[(static_cast<long long>(d) * ci + i) * co + o] = acc[d][a][b];
+      for (int j = 0; j < WN; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[d][i][j][c] = 0.f;
+  float* out = p.part + static_cast<long long>(blockIdx.z) * KB * p.ci * p.co;
+
+  // Every split has rows (the launch checks it), so n_stages >= 1.
+  const int n_stages = static_cast<int>((r_end - r_begin + p.stage_rows - 1) / p.stage_rows);
+  const int flush_stages = kFlushPositions / P > 0 ? kFlushPositions / P : 1;
+  load_stage(p, sm, sm + P * ldm, r_begin, r_end, nbp, co0, ci0);
+  copy_commit();
+  for (int s = 0; s < n_stages; ++s) {
+    if (s + 1 < n_stages) {
+      float* nxt = sm + ((s + 1) & 1) * sf;
+      load_stage(p, nxt, nxt + P * ldm, r_begin + static_cast<long long>(s + 1) * p.stage_rows,
+                 r_end, nbp, co0, ci0);
+      copy_commit();
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
+    }
+    __syncthreads();  // this stage (and, at s = 0, the zeroed halos) is visible
+    const float* ds = sm + (s & 1) * sf + (2 * t) * ldm + warp_co + 2 * WM * g;
+    const float* zs = sm + (s & 1) * sf + P * ldm + (2 * t) * ldn + warp_ci + WN * g;
+    for (int k0 = 0; k0 < P; k0 += 8) {
+      // dy at positions k0 + 2t (fragment k = t) and k0 + 2t + 1 (k = t + 4)
+      float a_lo[2 * WM], a_hi[2 * WM];
+      load_vec<2 * WM>(ds + k0 * ldm, a_lo);
+      load_vec<2 * WM>(ds + (k0 + 1) * ldm, a_hi);
+      uint32_t ab[WM][4], as[WM][4];
+#pragma unroll
+      for (int i = 0; i < WM; ++i) {
+        split_tf32(a_lo[2 * i], ab[i][0], as[i][0]);
+        split_tf32(a_lo[2 * i + 1], ab[i][1], as[i][1]);
+        split_tf32(a_hi[2 * i], ab[i][2], as[i][2]);
+        split_tf32(a_hi[2 * i + 1], ab[i][3], as[i][3]);
+      }
+      // z at positions k0 + 2t + e, e = 0 .. KB: tap d takes e = d and d + 1
+      uint32_t zb[2][WN], zsm[2][WN];
+      {
+        float v[WN];
+        load_vec<WN>(zs + k0 * ldn, v);
+#pragma unroll
+        for (int j = 0; j < WN; ++j) split_tf32(v[j], zb[0][j], zsm[0][j]);
+      }
+#pragma unroll
+      for (int d = 0; d < KB; ++d) {
+        const int lo = d & 1, hi = (d + 1) & 1;
+        float v[WN];
+        load_vec<WN>(zs + (k0 + d + 1) * ldn, v);
+#pragma unroll
+        for (int j = 0; j < WN; ++j) split_tf32(v[j], zb[hi][j], zsm[hi][j]);
+        // One pass of the three over all WM x WN accumulators before the
+        // next, so that back-to-back mma are independent.
+#pragma unroll
+        for (int i = 0; i < WM; ++i)
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+            mma_tf32(acc[d][i][j], as[i][0], as[i][1], as[i][2], as[i][3], zb[lo][j], zb[hi][j]);
+#pragma unroll
+        for (int i = 0; i < WM; ++i)
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+            mma_tf32(acc[d][i][j], ab[i][0], ab[i][1], ab[i][2], ab[i][3], zsm[lo][j],
+                     zsm[hi][j]);
+#pragma unroll
+        for (int i = 0; i < WM; ++i)
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+            mma_tf32(acc[d][i][j], ab[i][0], ab[i][1], ab[i][2], ab[i][3], zb[lo][j], zb[hi][j]);
       }
     }
+    // Every kFlushPositions positions, and at the end, the accumulators
+    // are added in float32, rounding to nearest, to this block's partial
+    // sums in `out` (its own slot: no other block writes there), and
+    // restart from zero: tensor cores truncate as they accumulate.
+    if ((s + 1) % flush_stages == 0 || s + 1 == n_stages) {
+      const bool first = s < flush_stages;
+#pragma unroll
+      for (int d = 0; d < KB; ++d)
+#pragma unroll
+        for (int i = 0; i < WM; ++i)
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int o = co0 + warp_co + 2 * WM * g + 2 * i + (c >> 1);
+              const int k = ci0 + warp_ci + WN * (2 * t + (c & 1)) + j;
+              if (o < p.co && k < p.ci) {
+                float* dst = out + (static_cast<long long>(d) * p.ci + k) * p.co + o;
+                *dst = first ? acc[d][i][j][c] : *dst + acc[d][i][j][c];
+              }
+              acc[d][i][j][c] = 0.f;
+            }
+    }
+    __syncthreads();  // the next iteration's copies overwrite this stage
+  }
 }
 
 // out[i] = sum over s of part[s][i], s in increasing order.
@@ -138,44 +370,75 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part, float* __restri
 }
 
 template <int KB>
-cudaError_t launch_partial(const float* z, const float* dy, float* part, long long rows, int nb,
-                           int ci, int co, int dc, long long rows_per_split, int splits,
-                           int stage_rows, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * static_cast<size_t>(stage_rows) * (2 * nb + KB - 1) * kTile;
+cudaError_t launch_partial(const Params& p, int splits, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      dw_partial_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      dw_mma_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((ci + kTile - 1) / kTile, (co + kTile - 1) / kTile, splits);
-  dw_partial_kernel<KB><<<grid, kThreads, smem, stream>>>(z, dy, part, rows, nb, ci, co, dc,
-                                                          rows_per_split, stage_rows);
+  const dim3 grid((p.ci + kBn - 1) / kBn, (p.co + kBm - 1) / kBm, splits);
+  dw_mma_kernel<KB><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <int KB>
+cudaError_t occupancy(int smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dw_mma_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dw_mma_kernel<KB>, kThreads,
+                                                       static_cast<size_t>(smem));
+}
+
 }  // namespace
+
+// Bytes of shared memory one block takes (two stages).
+extern "C" long long blocked_dw_smem_bytes(int stage_rows, int nb, int kb) {
+  return 2LL * sizeof(float) * stage_floats(stage_rows, nb, kb);
+}
+
+// Blocks of the KB instance that one SM holds at `smem` bytes each, into
+// *blocks.  Returns the CUDA error code (0 on success).
+extern "C" int blocked_dw_blocks_per_sm(int kb, int smem, int* blocks) {
+  cudaError_t err;
+  switch (kb) {
+#define DW_OCC(K)                     \
+  case K:                             \
+    err = occupancy<K>(smem, blocks); \
+    break;
+    DW_OCC(1) DW_OCC(2) DW_OCC(3) DW_OCC(4) DW_OCC(5) DW_OCC(6) DW_OCC(7) DW_OCC(8)
+#undef DW_OCC
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
 
 // dW of one blocked frequency conv on `stream`.  z [rows, nb, ci] and dy
 // [rows, nb, co] float32, contiguous; out [kb, ci, co] float32.  `part` is
 // scratch of splits * kb * ci * co floats (unused when splits == 1, when
 // the partial kernel writes `out` directly).  Row split s covers rows
-// [s * rows_per_split, (s + 1) * rows_per_split).  Returns the CUDA error
-// code of the launches (0 on success); never synchronises.
+// [s * rows_per_split, (s + 1) * rows_per_split), in stages of stage_rows
+// rows; a block covers 32 co by 32 ci.  Returns the CUDA error code of
+// the launches (0 on success); never synchronises.
 extern "C" int blocked_dw_forward(const float* z, const float* dy, float* out, float* part,
                                   long long rows, int nb, int ci, int co, int kb, int dc,
                                   long long rows_per_split, int splits, int stage_rows,
                                   void* stream) {
   if (rows < 1 || nb < 1 || ci < 1 || co < 1 || kb < 1 || kb > kMaxKb || dc < 0 || dc >= kb ||
       rows_per_split < 1 || splits < 1 || stage_rows < 1 ||
-      (splits - 1) * rows_per_split >= rows || splits * rows_per_split < rows)
+      (splits - 1) * rows_per_split >= rows || splits * rows_per_split < rows ||
+      stage_rows * (nb + kb - 1) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = reinterpret_cast<uintptr_t>(z) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  const Params p{z, dy, splits == 1 ? out : part, rows, rows_per_split, nb, ci, co, dc,
+                 stage_rows, (aligned && ci % 4 == 0 && co % 4 == 0) ? 4 : 1};
+  const size_t smem = static_cast<size_t>(blocked_dw_smem_bytes(stage_rows, nb, kb));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = splits == 1 ? out : part;
   cudaError_t err;
   switch (kb) {
-#define DW_CASE(K)                                                                          \
-  case K:                                                                                   \
-    err = launch_partial<K>(z, dy, dst, rows, nb, ci, co, dc, rows_per_split, splits,       \
-                            stage_rows, s);                                                 \
+#define DW_CASE(K)                                      \
+  case K:                                               \
+    err = launch_partial<K>(p, splits, smem, s);        \
     break;
     DW_CASE(1) DW_CASE(2) DW_CASE(3) DW_CASE(4) DW_CASE(5) DW_CASE(6) DW_CASE(7) DW_CASE(8)
 #undef DW_CASE

@@ -1,9 +1,9 @@
 """The blocked dW contraction and its autograd Function, on the CPU: the
 plain version against the JAX package's einsum reference and its Pallas
 kernel in interpret mode, the Function's gradients against autograd of the
-raw conv, and the kernel's launch plan.  The CUDA kernel itself is held
-against the plain version on the card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+raw conv, the kernel's launch plan, and its staged layout and 3xTF32
+arithmetic emulated in torch.  The CUDA kernel itself is held against the
+plain version on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -105,21 +105,107 @@ def test_blocked_model_grads_unchanged_by_the_function():
         )
 
 
+# V2's 14 inner layers in blocked form at fb 8: (Ci, Co) = 8 x its channels
+V2_DW_SHAPES = [(80, 96), (96, 112), (112, 120), (120, 152), (152, 168), (168, 184), (184, 200),
+                (200, 184), (184, 168), (168, 152), (152, 120), (120, 112), (112, 96), (96, 80)]
+# The products the kernel's 32 x 32 tiles compute over V2's 14 layers,
+# against the sum of Ci * Co they need (286,720).
+V2_PADDED_RATIO = 1.179
+
+
 @pytest.mark.parametrize(
     "rows,nb,ci,co,kb",
     [(32768, 17, 200, 184, 4), (32768, 17, 80, 96, 4), (111, 17, 80, 96, 4), (1, 3, 8, 8, 1),
      (64 * 512, 129, 8, 80, 8)],
 )
 def test_launch_plan_covers_the_rows(rows, nb, ci, co, kb):
-    stage, per_split, splits = blocked_dw.launch_plan(rows, nb, ci, co, kb, sm_count=132)
-    assert 1 <= stage <= blocked_dw.MAX_STAGE_ROWS
-    assert 4 * stage * (2 * nb + kb - 1) * blocked_dw.TILE <= max(
-        blocked_dw.STAGE_SMEM_BYTES, 4 * (2 * nb + kb - 1) * blocked_dw.TILE
-    )
-    assert per_split % stage == 0
+    plan = blocked_dw.launch_plan(rows, nb, ci, co, kb, sm_count=132)
+    tile = blocked_dw.TILE
+    assert plan.tiles == -(-ci // tile) * -(-co // tile)
+    # a stage is whole k8 chunks of the flat K index, and two fit a block
+    assert plan.stage_rows * (nb + kb - 1) % 8 == 0
+    assert plan.smem_bytes == blocked_dw.smem_bytes(plan.stage_rows, nb, kb) <= blocked_dw.SMEM_BYTES
+    assert plan.blocks_per_sm == blocked_dw.model_blocks_per_sm(kb, plan.smem_bytes) >= 1
+    assert plan.rows_per_split % plan.stage_rows == 0
     # every split has rows, and together they cover all of them: the
     # kernel's own check on its arguments
-    assert (splits - 1) * per_split < rows <= splits * per_split
+    assert (plan.splits - 1) * plan.rows_per_split < rows <= plan.splits * plan.rows_per_split
+    if rows >= 32768:
+        # whole waves: the blocks fill at least 95% of their waves' slots
+        slots = 132 * plan.blocks_per_sm
+        waves = -(-plan.tiles * plan.splits // slots)
+        assert plan.tiles * plan.splits >= 0.95 * waves * slots
+    if (ci, co) in V2_DW_SHAPES:
+        padded = sum(-(-i // tile) * -(-o // tile) * tile * tile for i, o in V2_DW_SHAPES)
+        assert padded <= V2_PADDED_RATIO * sum(i * o for i, o in V2_DW_SHAPES)
+
+
+def tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """float32 `x` cut to TF32's 10 mantissa bits, still as float32: "rna"
+    to nearest with ties away from zero (PTX cvt.rna.tf32.f32, as TF32
+    convs round), "rz" toward zero (the low 13 bits cleared, as the kernel
+    splits)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    if rounding == "rna":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def staged_dw(z, dy, kb, dc, passes):
+    """dW [KB, Ci, Co] as the kernel stages and multiplies it: dy with row
+    stride nbp = NB + KB - 1 (zeros after its NB blocks), z shifted by dc
+    in the same stride with KB - 1 zero positions after the last row, and
+    tap d as dy^T times z at p + d over one flat K index.  passes 0
+    multiplies the float32 values; 1 their TF32 roundings (one-pass TF32);
+    3 the kernel's 3xTF32 split, big = rz(x) and small = rz(x - big),
+    as small_a big_b + big_a small_b + big_a big_b.  Products and sums in
+    float64."""
+    rows, nb, ci = z.shape
+    nbp = nb + kb - 1
+    zs = torch.zeros(rows, nbp, ci)
+    zs[:, dc : dc + nb] = z
+    zs = torch.cat([zs.reshape(rows * nbp, ci), torch.zeros(kb - 1, ci)])
+    ds = torch.zeros(rows, nbp, dy.shape[2])
+    ds[:, :nb] = dy
+    ds = ds.reshape(rows * nbp, -1)
+
+    def mm(a, b):
+        return a.double().T @ b.double()
+
+    taps = []
+    for d in range(kb):
+        b = zs[d : d + rows * nbp]
+        if passes == 0:
+            taps.append(mm(ds, b))
+        elif passes == 1:
+            taps.append(mm(tf32(ds, "rna"), tf32(b, "rna")))
+        else:
+            a_big, b_big = tf32(ds, "rz"), tf32(b, "rz")
+            a_small, b_small = tf32(ds - a_big, "rz"), tf32(b - b_big, "rz")
+            taps.append(mm(a_small, b_big) + mm(a_big, b_small) + mm(a_big, b_big))
+    return torch.stack(taps).transpose(1, 2)
+
+
+@pytest.mark.parametrize("kb", range(1, blocked_dw.MAX_KB + 1))
+def test_staged_3xtf32_matches_plain_within_dw_tol(kb):
+    """The kernel's staged layout and 3xTF32 split, emulated in torch at
+    300 rows, against `blocked_dw_plain` in float64 for every dc: the
+    layout alone is exact; 3xTF32 lands within chip_smoke.py's DW_TOL
+    (rtol 1e-4, atol 1e-4 * max|plain|) with room to spare, measured at
+    1.8e-3 to 2.6e-3 of it; one-pass TF32 (about 3 digits) lands outside,
+    measured at 2.1x to 3.1x of it, which is why the kernel takes three
+    products."""
+    rng = np.random.default_rng(kb)
+    z = torch.as_tensor(rng.standard_normal((300, 17, 24)).astype(np.float32))
+    dy = torch.as_tensor(rng.standard_normal((300, 17, 16)).astype(np.float32))
+    for dc in range(kb):
+        ref = blocked_dw.blocked_dw_plain(z.double()[None], dy.double()[None], kb, dc)[0]
+        tol = 1e-4 * ref.abs() + 1e-4 * ref.abs().max()
+        torch.testing.assert_close(staged_dw(z, dy, kb, dc, 0), ref, rtol=1e-12, atol=1e-12)
+        err3 = ((staged_dw(z, dy, kb, dc, 3) - ref).abs() / tol).max().item()
+        err1 = ((staged_dw(z, dy, kb, dc, 1) - ref).abs() / tol).max().item()
+        assert err3 < 1e-2, (dc, err3)
+        assert err1 > 1.0, (dc, err1)
 
 
 def test_wrapper_rejects_other_devices_before_launching():

@@ -104,22 +104,39 @@ def _dw_inputs(B, T, ci, co, device, seed=0):
     return z, dy
 
 
+# V2's 14 inner layers in blocked form at fb 8: (Ci, Co) = 8 x its channels
+V2_DW_SHAPES = [(80, 96), (96, 112), (112, 120), (120, 152), (152, 168), (168, 184), (184, 200),
+                (200, 184), (184, 168), (168, 152), (152, 120), (120, 112), (112, 96), (96, 80)]
+# (B, T, Ci, Co, KB, dc): B*T = 111 rows leave ragged stages and splits
+DW_CASES = (
+    [(3, 37, ci, co, 4, 2) for ci, co in V2_DW_SHAPES]
+    + [(3, 37, 72, 88, kb, dc) for kb in range(1, 9) for dc in sorted({0, kb - 1})]
+    + [(3, 37, 21, 13, 4, 2), (64, 512, 184, 200, 4, 2)]
+)
+DW_IDS = (
+    [f"v2_{ci}x{co}" for ci, co in V2_DW_SHAPES]
+    + [f"kb{kb}_dc{dc}" for kb in range(1, 9) for dc in sorted({0, kb - 1})]
+    + ["ci21_co13", "v2_layer"]
+)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 37, 80, 96), (64, 512, 184, 200)], ids=["ragged", "v2_layer"])
-def test_blocked_dw_matches_plain_on_cuda(cuda_device, shape):
-    """B*T = 111 rows leaves ragged stages and splits; 64 x 512 is V2's
-    encode_8 at the 8 s bucket.  f32 sums over up to 557k terms in another
-    order: atol 1e-4 * max|plain|."""
-    B, T, ci, co = shape
+@pytest.mark.parametrize("case", DW_CASES, ids=DW_IDS)
+def test_blocked_dw_matches_plain_on_cuda(cuda_device, case):
+    """V2's 14 (Ci, Co) pairs, KB 1..8 with dc at both ends, a Ci and Co
+    that are not multiples of 4 (the kernel's scalar staging), and 64 x
+    512, V2's encode_8 at the 8 s bucket.  f32 sums over up to 557k terms
+    in another order: atol 1e-4 * max|plain|."""
+    B, T, ci, co, kb, dc = case
     z, dy = _dw_inputs(B, T, ci, co, cuda_device)
     before = blocked_dw.launches
-    got = blocked_dw.blocked_dw(z, dy, 4, 2)
+    got = blocked_dw.blocked_dw(z, dy, kb, dc)
     torch.cuda.synchronize()
     assert blocked_dw.launches == before + 1
-    ref = blocked_dw.blocked_dw_plain(z, dy, 4, 2)
+    ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
     # no atomics: a second launch repeats the first bit for bit
-    assert torch.equal(blocked_dw.blocked_dw(z, dy, 4, 2), got)
+    assert torch.equal(blocked_dw.blocked_dw(z, dy, kb, dc), got)
 
 
 @pytest.mark.cuda
