@@ -11,7 +11,9 @@ for an H100) and `nvcc`.  It imports only the port
   2. builds the CUDA kernels for sm_90a, one `nvcc` per source, started
      together (`ops/csrc/rced_stack.cu`, `ops/csrc/blocked_dw.cu`,
      `ops/csrc/freq_conv.cu`), and prints their ptxas lines and build
-     times; beside them, a probe of mma.sync's TF32 rate (MMA_RATE_SRC);
+     times; beside them, a probe of mma.sync's TF32 rate (MMA_RATE_SRC),
+     measured once here and used by phases 7 and 11 (both kernels issue
+     mma.sync in 3xTF32);
 
   The serving path (the fused inference kernel, `rced_stack`):
   3. builds two V2 inference engines at full width from one npz of random
@@ -27,9 +29,11 @@ for an H100) and `nvcc`.  It imports only the port
      V1/V2/V3 at B=2, T=70 and T=45 (rtol 1e-4, atol 1e-5), and at the
      shapes the requests gave it (rtol 1e-4, atol 1e-5 * max|plain|);
   7. times the kernel, its plain version and the layer-by-layer cuDNN
-     inner stack at 64 x 8 s with CUDA events, the stages of one 8 s
-     request, and each request's host time and device-busy time (from
-     torch.profiler) through both engines;
+     inner stack at 64 x 8 s with CUDA events, beside the kernel's 3xTF32
+     bound (and the float32 one), the products its m16n8k8 tiles pad in
+     and the floor mma.sync's measured rate sets; prints its launch plan;
+     then the stages of one 8 s request, and each request's host time and
+     device-busy time (from torch.profiler) through both engines;
 
   The training path (the blocked dW kernel, `blocked_dw`):
   8. writes a corpus (512 speech-like utterances of 6.5-8.0 s, all in the
@@ -55,7 +59,8 @@ for an H100) and `nvcc`.  It imports only the port
      and `torch.nn.grad.conv2d_weight` (cuDNN backward-filter, the
      yardstick) with CUDA events, beside the kernel's 3xTF32 bound (and
      the float32 one), the products its launch plan pads in, and the
-     rate of mma.sync TF32 alone on this card; then the whole train step
+     floor set by mma.sync's TF32 rate on this card (phase 2); then the
+     whole train step
      with dw_pallas on and off, the device-busy time of one
      steps_per_call=8 dispatch, and which ops launch cuDNN's layout
      conversions in one train step;
@@ -171,10 +176,15 @@ def check_close(name, got, ref, rtol, atol) -> float:
 
 
 def randomized_bn(bn, seed):
+    """BN statistics moved off their init: means shifted by U(-0.5, 0.5),
+    variances scaled by U(1, 2).  Centred, so the ReLUs stay alive: a
+    shift of U(0, 1) left V2's inner stack at 0 everywhere on phase 7's
+    inputs, and every comparison of it vacuous."""
     rng = np.random.default_rng(seed)
     out = {}
     for k, v in bn.items():
-        mean = v["mean"] + torch.as_tensor(rng.random(v["mean"].shape, dtype=np.float32)).to(v["mean"].device)
+        shift = rng.random(v["mean"].shape, dtype=np.float32) - 0.5
+        mean = v["mean"] + torch.as_tensor(shift).to(v["mean"].device)
         var = v["var"] * (1 + torch.as_tensor(rng.random(v["var"].shape, dtype=np.float32)).to(v["var"].device))
         out[k] = {"mean": mean, "var": var}
     return out
@@ -285,15 +295,21 @@ def layout_conversions(fn, names=("nchwToNhwc", "nhwcToNchw"), top: int = 12):
 
 
 def stack_work(packed, B, T):
-    """(FLOP, bytes) the inner stack needs on [B, c_in, T, 129]: each input
-    read once, each output and weight moved once."""
-    macs = sum(lay.kw * lay.cin * lay.cout for lay in packed.layers)
-    flop = 2.0 * B * T * 129 * macs
+    """(FLOP, bytes) the inner stack needs on [B, c_in, T, 129]: products
+    only against real inputs (tap j of a layer with kw taps meets
+    129 - |j - lo| bins; the rest fall on the zero halo, as `conv_work`
+    counts them), each input read once, each output and weight moved
+    once."""
+    macs = 0
+    for lay in packed.layers:
+        lo = (lay.kw - 1) // 2
+        macs += lay.cin * lay.cout * sum(129 - abs(j - lo) for j in range(lay.kw))
+    flop = 2.0 * B * T * macs
     nbytes = 4.0 * B * T * 129 * (packed.c_in + packed.c_out) + 4.0 * packed.weights.numel()
     return flop, nbytes
 
 
-def run_serving(dev, tmp: str) -> dict:
+def run_serving(dev, tmp: str, mma_rate: float) -> dict:
     """Phases 3-7: the serving path through the fused kernel.  Returns the
     `rced_stack` entry of the `kernels` line."""
     from fullycnnspeechenhancement_torch import Config, ModelConfig
@@ -401,12 +417,22 @@ def run_serving(dev, tmp: str) -> dict:
     cudnn_ms = cuda_ms(lambda: inner_stack_cudnn(folded, y1), reps=10)
     kernel_ms_2 = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
     flop, nbytes = stack_work(pk, B, T)
-    t_ops, t_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    # 3xTF32 issues three TF32 products for each float32 one
+    t_ops, t_simt = 3 * flop / PEAK_TF32_FLOPS * 1e3, flop / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
+    plan = rced_stack.launch_plan(pk, rced_stack.card_blocks_per_sm(pk.smem_floats * 4, dev))
+    padded = plan.padded_product_ratio
+    floor_ms = 3 * flop * padded / (mma_rate * 1e12) * 1e3
     log(f"timing V2 inner stack at {B} x 8 s (T={T}): kernel {kernel_ms:.3f} / {kernel_ms_2:.3f} ms, "
         f"plain {plain_ms:.3f} ms, cuDNN layer by layer {cudnn_ms:.3f} ms")
-    log(f"bound: {flop:.4e} FLOP -> {t_ops:.3f} ms at 67 TFLOP/s; {nbytes:.4e} B -> "
-        f"{t_bytes:.3f} ms at 3.35 TB/s; kernel at {100 * bound_ms / kernel_ms:.1f}% of bound")
+    log(f"bound: {flop:.4e} FLOP -> {t_ops:.3f} ms in 3xTF32 at 495 TFLOP/s ({t_simt:.3f} ms in float32 "
+        f"at 67 TFLOP/s); {nbytes:.4e} B -> {t_bytes:.3f} ms at 3.35 TB/s; kernel at "
+        f"{100 * bound_ms / kernel_ms:.1f}% of the 3xTF32 bound, {100 * t_simt / kernel_ms:.1f}% of the "
+        f"float32 one")
+    log(f"m16n8k8 tiles pad the products {padded:.4f}x; at mma.sync's {mma_rate:.1f} TFLOP/s the floor is "
+        f"{floor_ms:.3f} ms (kernel at {100 * floor_ms / kernel_ms:.1f}% of it)")
+    log(f"launch plan (one block per frame, {B * T} blocks at {B} x 8 s): {plan._asdict()}")
 
     # stages of one 8 s request, fused engine
     sig = requests[1]
@@ -457,11 +483,18 @@ def run_serving(dev, tmp: str) -> dict:
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_by": "operations, 3xTF32 tensor cores" if t_ops >= t_bytes else "bytes",
         # No single PyTorch call computes the stack; the cuDNN
         # layer-by-layer stack (14 convs plus adds) is its own key.
         "library_ms": None,
         "cudnn_stack_ms": cudnn_ms,
+        "mma_sync_tf32_tflops": mma_rate,
+        # computed from this run's inputs and the rate above, not timed
+        "derived": {
+            "bound_fp32_simt_ms": max(t_simt, t_bytes),
+            "padded_product_ratio": padded,
+            "mma_sync_floor_ms": floor_ms,
+        },
     }
 
 
@@ -587,7 +620,7 @@ def dw_work(shapes, rows: int, nb: int, kb: int, dc: int):
     return flop, nbytes
 
 
-def run_training(dev, tmp: str, mma_rate_lib: str) -> dict:
+def run_training(dev, tmp: str, rate: float) -> dict:
     """Phases 8-11: the training path through the dW kernel.  Returns the
     `blocked_dw` entry of the `kernels` line."""
     from fullycnnspeechenhancement_torch import Config, ModelConfig, load_ini_config
@@ -778,7 +811,6 @@ def run_training(dev, tmp: str, mma_rate_lib: str) -> dict:
         ci * co for _, ci, co in shapes)
     nbp = nb + kb - 1
     computed = padded * nbp * kb / sum(max(0, nb - abs(d - dc)) for d in range(kb))
-    rate = mma_sync_tf32_tflops(mma_rate_lib)
     floor_ms = 3 * flop * computed / (rate * 1e12) * 1e3
     log(f"timing blocked_dw over V2's 14 layers at {B_TRAIN} x 8 s (B*T={rows_full}): kernel {k_ms:.3f} ms, "
         f"plain {p_ms:.3f} ms, conv2d_weight (cuDNN) {lib_ms:.3f} ms")
@@ -841,11 +873,14 @@ def run_training(dev, tmp: str, mma_rate_lib: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "operations, 3xTF32 tensor cores" if t_ops >= t_bytes else "bytes",
         "library_ms": lib_ms,
-        "bound_fp32_simt_ms": max(t_simt, t_bytes),
-        "padded_product_ratio": padded,
-        "k_padding_ratio": nbp / nb,
         "mma_sync_tf32_tflops": rate,
-        "mma_sync_floor_ms": floor_ms,
+        # computed from this run's inputs and the rate above, not timed
+        "derived": {
+            "bound_fp32_simt_ms": max(t_simt, t_bytes),
+            "padded_product_ratio": padded,
+            "k_padding_ratio": nbp / nb,
+            "mma_sync_floor_ms": floor_ms,
+        },
     }
 
 
@@ -1215,13 +1250,14 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    mma_rate_lib = build_kernels()
+    mma_rate = mma_sync_tf32_tflops(build_kernels())
+    log(f"mma.sync m16n8k8 TF32 alone: {mma_rate:.1f} TFLOP/s")
     phase("build", t0)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        stack_entry = run_serving(dev, tmp)
+        stack_entry = run_serving(dev, tmp, mma_rate)
         phase("serving", t0)
-        dw_entry = run_training(dev, tmp, mma_rate_lib)
+        dw_entry = run_training(dev, tmp, mma_rate)
     t0 = time.perf_counter()
     probe_path = run_probe_path(dev)
     phase("probe path", t0)

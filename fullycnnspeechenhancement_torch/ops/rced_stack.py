@@ -16,7 +16,11 @@ FIRST conv looks across time; every later layer but the last is a per-frame
   * layer 1 runs as a cuDNN conv on the folded weights, then its ReLU;
   * the inner layers run in one kernel launch that keeps every live tap of
     a frame in shared memory (`stack_forward`); taps that name layer 1
-    read the kernel's input;
+    read the kernel's input.  The kernel runs each layer as a GEMM on the
+    tensor cores in 3xTF32: `pack_inference_stack` orders K = (tap, input
+    channel), splits the weights into TF32 big and small parts and stores
+    them in `mma.sync` fragment order, and gives the kernel each k's
+    shared-memory offset (`tap_offsets`);
   * the final (1, 129) projection runs as a cuDNN conv.
 
 `stack_forward` is the kernel's wrapper: on a CPU tensor it runs
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,12 +44,25 @@ from fullycnnspeechenhancement_torch.models.rced import ConvSpec, ModelDef
 from fullycnnspeechenhancement_torch.ops import build
 
 F_DIM = 129
-HALO = 6  # zero bins on each side of a row: covers kw <= 13
-ROW = F_DIM + 2 * HALO
+HALO = 6  # zero bins on each side of a row's 129: covers kw <= 13
+# Floats per channel row (csrc kRow): 129 bins, then 7 zeros that are this
+# row's right halo and the next row's left halo.  8 mod 32, so the four
+# channels of an in-tap k quad fall in four distinct 8-bank groups.
+ROW = 136
+M_TILES = 9  # m16 tiles over bins 0..143, one to a warp (csrc kMTiles)
+M_PAD = 16 * M_TILES
+THREADS = 32 * M_TILES
+N_TILE = 8  # output channels per n8 tile
+K_CHUNK = 8  # K per mma (m16n8k8)
 MAX_KW = 13
 MAX_LAYERS = 16
+MAX_COUT = 32  # four n8 tiles
 SMEM_BYTES = 232_448  # the most shared memory one Hopper block can use
-SMEM_SLACK = 4  # floats after the last row, for discarded over-reads
+SM_SMEM_BYTES = 233_472  # shared memory of one SM; each block also takes 1 KiB
+# Floats after the last row: the padded bin 143 reads up to HALO + 6 + 143
+# floats past its row's start.
+SMEM_SLACK = 2 * HALO + M_PAD - ROW
+TF32_MASK = -8192  # 0xffffe000 as int32: clears the 13 low mantissa bits
 INPUT = "__input__"
 
 # Kernel launches since the count was last set to 0.
@@ -82,16 +99,28 @@ class InnerLayer:
     skip_from: Optional[str]
     add_from: Optional[str]
     use_act: bool
-    w_off: int  # floats into PackedStack.weights: [cin][kw][cout4]
-    b_off: int  # floats into PackedStack.weights: [cout4]
+    w_off: int  # floats into PackedStack.weights: B fragments, then biases
+    k_off: int  # ints into PackedStack.koffs: chunks * 8 A offsets
     in_row: int = -1
     out_row: int = -1
     skip_row: int = -1
     add_row: int = -1
 
     @property
-    def cout4(self) -> int:
-        return (self.cout + 3) // 4 * 4
+    def k(self) -> int:
+        return self.cin * self.kw
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.k // K_CHUNK)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.cout // N_TILE)
+
+    @property
+    def b_off(self) -> int:
+        return self.w_off + self.chunks * self.n_tiles * 32 * 4
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -101,7 +130,9 @@ class PackedStack:
     first: Tuple[ConvSpec, torch.Tensor, torch.Tensor]  # layer 1, OIHW
     last: Tuple[ConvSpec, torch.Tensor, torch.Tensor]  # final projection
     layers: Tuple[InnerLayer, ...]
-    weights: torch.Tensor  # all inner layers, packed, float32
+    folded: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # inner (w [cin, kw, cout], b)
+    weights: torch.Tensor  # the kernel's B fragments and biases, float32
+    koffs: torch.Tensor  # the kernel's A offsets, int32
     plan: np.ndarray  # [n_layers, 10] int32, the kernel's layer table
     in_row: int
     out_row: int
@@ -155,44 +186,98 @@ def _allocate_rows(layers, c_in):
     return where, used
 
 
+def tap_offsets(cin: int, kw: int) -> np.ndarray:
+    """The kernel's A offsets of one layer, [chunks * 8] int32: k = j * cin
+    + ci (tap-outer, channel-inner) reads channel ci's row at tap j, so
+    A[m, k] = in[offset[k] + m] with offset[k] = ci * ROW + HALO - lo + j;
+    the padded k past cin * kw repeat the last offset (their weights are
+    zero, and a repeated address is a broadcast, not a bank conflict)."""
+    lo = (kw - 1) // 2
+    k = np.minimum(np.arange(-(-cin * kw // K_CHUNK) * K_CHUNK), cin * kw - 1)
+    j, ci = np.divmod(k, cin)
+    return (ci * ROW + HALO - lo + j).astype(np.int32)
+
+
+def gemm_weights(w: torch.Tensor, chunks: int, n_tiles: int) -> torch.Tensor:
+    """w [cin, kw, cout] -> the layer's B [chunks * 8, n_tiles * 8]: row
+    j * cin + ci holds w[ci, j], zeros past K and cout."""
+    cin, kw, cout = w.shape
+    b = torch.zeros(chunks * K_CHUNK, n_tiles * N_TILE, dtype=torch.float32, device=w.device)
+    b[: cin * kw, :cout] = w.permute(1, 0, 2).reshape(cin * kw, cout)
+    return b
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of float32 `x` as the kernel splits it: big is x with
+    its 13 low mantissa bits cleared (a TF32 value), small the same of
+    x - big (exact), so x = big + small + O(2^-20 |x|)."""
+    big = (x.view(torch.int32) & TF32_MASK).view(torch.float32)
+    small = ((x - big).view(torch.int32) & TF32_MASK).view(torch.float32)
+    return big, small
+
+
+def pack_fragments(b: torch.Tensor) -> torch.Tensor:
+    """B [chunks * 8, n_tiles * 8] -> its 3xTF32 fragments, flat float32
+    [chunks, n_tiles, 32 lanes, 4]: lane 4g + t of tile (c, n) holds big
+    B[8c + t, 8n + g], big B[8c + t + 4, 8n + g], then the small parts of
+    both, so its fragment is one 16-byte load."""
+    kp, np_ = b.shape
+    big, small = split_tf32(b.contiguous())
+    parts = torch.stack([big, small])  # [s, K, N]
+    parts = parts.view(2, kp // K_CHUNK, 2, 4, np_ // N_TILE, N_TILE)  # [s, c, h, t, n, g]
+    return parts.permute(1, 4, 5, 3, 0, 2).reshape(-1).contiguous()  # [c, n, g, t, s, h]
+
+
+def unpack_fragments(frag: torch.Tensor, chunks: int, n_tiles: int):
+    """Inverse of `pack_fragments`: -> (big, small), each [chunks * 8,
+    n_tiles * 8]."""
+    parts = frag.view(chunks, n_tiles, N_TILE, 4, 2, 2).permute(4, 0, 5, 3, 1, 2)
+    parts = parts.reshape(2, chunks * K_CHUNK, n_tiles * N_TILE)
+    return parts[0], parts[1]
+
+
 def pack_inference_stack(model: ModelDef, params, bn_state) -> PackedStack:
     """Fold BN and pack the inner layers' weights and plan for the kernel.
 
-    Inner layers must be (1, kw <= 13) convs over 129 bins; at most 16 of
-    them, whose live taps fit one block's shared memory."""
+    Inner layers must be (1, kw <= 13) convs over 129 bins with at most 32
+    output channels; at most 16 of them, whose live taps fit one block's
+    shared memory."""
     folded = fold_bn_inference(model, params, bn_state)
     first, last, inner = folded[0], folded[-1], folded[1:-1]
     first_name = first[0].name
     if not 1 <= len(inner) <= MAX_LAYERS:
         raise ValueError(f"{model.name}: {len(inner)} inner layers, kernel takes 1..{MAX_LAYERS}")
-    layers, chunks, off = [], [], 0
+    layers, plain, chunks, koffs = [], [], [], []
+    w_off = k_off = 0
     cin = first[0].out_ch
     for spec, w, b in inner:
         kh, kw = spec.kernel
         if kh != 1 or not 1 <= kw <= MAX_KW:
             raise ValueError(f"inner layer {spec.name} has kernel {spec.kernel}; needs (1, <= {MAX_KW})")
         cout = spec.out_ch
-        cout4 = (cout + 3) // 4 * 4
-        wp = torch.zeros(cin, kw, cout4, dtype=torch.float32, device=w.device)
-        wp[:, :, :cout] = w[:, :, 0, :].permute(1, 2, 0)
-        bp = torch.zeros(cout4, dtype=torch.float32, device=w.device)
-        bp[:cout] = b
-        chunks += [wp.reshape(-1), bp]
+        if cout > MAX_COUT:
+            raise ValueError(f"inner layer {spec.name} has {cout} channels; the kernel takes <= {MAX_COUT}")
 
         def remap(ref):
             return INPUT if ref == first_name else ref
 
-        layers.append(
-            InnerLayer(
-                spec.name, kw, cin, cout, remap(spec.skip_from), remap(spec.add_from),
-                spec.use_act, off, off + wp.numel(),
-            )
+        lay = InnerLayer(
+            spec.name, kw, cin, cout, remap(spec.skip_from), remap(spec.add_from),
+            spec.use_act, w_off, k_off,
         )
-        off += wp.numel() + cout4
+        w_cko = w[:, :, 0, :].permute(1, 2, 0).contiguous()  # [cin, kw, cout]
+        plain.append((w_cko, b))
+        bias = torch.zeros(lay.n_tiles * N_TILE, dtype=torch.float32, device=w.device)
+        bias[:cout] = b
+        chunks += [pack_fragments(gemm_weights(w_cko, lay.chunks, lay.n_tiles)), bias]
+        koffs.append(tap_offsets(cin, kw))
+        layers.append(lay)
+        w_off = lay.b_off + bias.numel()
+        k_off += koffs[-1].size
         cin = cout
 
     rows, used = _allocate_rows(layers, first[0].out_ch)
-    if used * ROW * 4 + SMEM_SLACK * 4 > SMEM_BYTES:
+    if (used * ROW + SMEM_SLACK) * 4 > SMEM_BYTES:
         raise ValueError(f"{model.name}: live taps need {used} rows, over one block's shared memory")
     prev = INPUT
     placed = []
@@ -214,19 +299,22 @@ def pack_inference_stack(model: ModelDef, params, bn_state) -> PackedStack:
     plan = np.array(
         [
             [
-                lay.kw, lay.cin, lay.cout, off_of(lay.in_row), off_of(lay.out_row),
+                lay.chunks, lay.n_tiles, lay.cout, off_of(lay.in_row), off_of(lay.out_row),
                 off_of(lay.skip_row), off_of(lay.add_row), int(lay.use_act),
-                lay.w_off, lay.b_off,
+                lay.w_off, lay.k_off,
             ]
             for lay in placed
         ],
         dtype=np.int32,
     )
+    device = first[1].device
     return PackedStack(
         first=first,
         last=last,
         layers=tuple(placed),
+        folded=tuple(plain),
         weights=torch.cat(chunks).contiguous(),
+        koffs=torch.as_tensor(np.concatenate(koffs), device=device),
         plan=plan,
         in_row=rows[INPUT],
         out_row=placed[-1].out_row,
@@ -236,19 +324,16 @@ def pack_inference_stack(model: ModelDef, params, bn_state) -> PackedStack:
 
 def stack_forward_plain(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
     """Plain torch version of the kernel: [B, c_in, T, 129] -> [B, c_out,
-    T, 129].  Same packed weights and the same per-layer arithmetic: for
-    each layer, kw shifted copies of the zero-padded rows contracted with
-    the weights, then bias, skip, ReLU, residual."""
+    T, 129].  The same folded weights and per-layer function: for each
+    layer, kw shifted copies of the zero-padded rows contracted with the
+    weights in float32, then bias, skip, ReLU, residual."""
     B, C, T, Fd = x.shape
     h = x.permute(0, 2, 1, 3).reshape(B * T, C, Fd)
     taps = {INPUT: h}
-    for lay in packed.layers:
-        n_w = lay.cin * lay.kw * lay.cout4
-        wp = packed.weights[lay.w_off : lay.w_off + n_w].view(lay.cin, lay.kw, lay.cout4)
-        bias = packed.weights[lay.b_off : lay.b_off + lay.cout4]
+    for lay, (w, bias) in zip(packed.layers, packed.folded):
         cols = F.pad(h, ((lay.kw - 1) // 2, lay.kw // 2)).unfold(2, lay.kw, 1)
-        y = torch.einsum("ncfk,cko->nof", cols, wp)[:, : lay.cout]
-        y = y + bias[: lay.cout, None]
+        y = torch.einsum("ncfk,cko->nof", cols, w)
+        y = y + bias[:, None]
         if lay.skip_from is not None:
             y = y + taps[lay.skip_from]
         if lay.use_act:
@@ -260,6 +345,46 @@ def stack_forward_plain(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
     return h.reshape(B, T, packed.c_out, Fd).permute(0, 2, 1, 3).contiguous()
 
 
+class LaunchPlan(NamedTuple):
+    """How `stack_forward` launches the kernel: one block per frame, of
+    `threads` threads and `smem_bytes` of shared memory, `blocks_per_sm` of
+    them resident on an SM; its m16n8k8 tiles compute
+    `padded_product_ratio` times the products the layers need."""
+
+    threads: int
+    smem_bytes: int
+    blocks_per_sm: int
+    frames_per_block: int
+    padded_product_ratio: float
+
+
+def padded_product_ratio(packed: PackedStack) -> float:
+    """Products the kernel computes (bins padded to M_PAD, K to k8 chunks,
+    cout to n8 tiles) over the products the layers need (tap j meets
+    F_DIM - |j - lo| bins; the rest fall on the zero halo)."""
+    done = sum(M_PAD * lay.chunks * K_CHUNK * lay.n_tiles * N_TILE for lay in packed.layers)
+    need = 0
+    for lay in packed.layers:
+        lo = (lay.kw - 1) // 2
+        need += lay.cin * lay.cout * sum(F_DIM - abs(j - lo) for j in range(lay.kw))
+    return done / need
+
+
+def model_blocks_per_sm(smem_bytes: int) -> int:
+    """Resident blocks per SM as shared memory and the SM's 2048 threads
+    allow, without asking the card (registers not modelled;
+    `card_blocks_per_sm` asks the CUDA occupancy calculator)."""
+    return min(SM_SMEM_BYTES // (smem_bytes + 1024), 2048 // THREADS)
+
+
+def launch_plan(packed: PackedStack, blocks_per_sm: Optional[int] = None) -> LaunchPlan:
+    """The kernel's launch on `packed`, at `blocks_per_sm` (from
+    `card_blocks_per_sm`) or, when not given, `model_blocks_per_sm`."""
+    smem = packed.smem_floats * 4
+    per_sm = model_blocks_per_sm(smem) if blocks_per_sm is None else blocks_per_sm
+    return LaunchPlan(THREADS, smem, per_sm, 1, padded_product_ratio(packed))
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and load `csrc/rced_stack.cu`."""
     global _lib
@@ -267,14 +392,32 @@ def load_library() -> ctypes.CDLL:
         lib = build.load("rced_stack")
         lib.rced_stack_forward.restype = ctypes.c_int
         lib.rced_stack_forward.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
+        lib.rced_stack_blocks_per_sm.restype = ctypes.c_int
+        lib.rced_stack_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.rced_stack_error_string.restype = ctypes.c_char_p
         lib.rced_stack_error_string.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
+
+
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"rced_stack {what} failed: {lib.rced_stack_error_string(rc).decode()} ({rc})")
+
+
+def card_blocks_per_sm(smem_bytes: int, device: torch.device) -> int:
+    """Blocks of the kernel one SM of `device` holds at `smem_bytes` each,
+    from the CUDA occupancy calculator (registers and shared memory)."""
+    lib = load_library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.rced_stack_blocks_per_sm(smem_bytes, ctypes.byref(n))
+    _check(lib, rc, "occupancy query")
+    return n.value
 
 
 def stack_forward(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
@@ -293,22 +436,19 @@ def stack_forward(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"rced_stack wants [B, {packed.c_in}, T, {F_DIM}], got {tuple(x.shape)}"
         )
-    if packed.weights.device != x.device:
+    if packed.weights.device != x.device or packed.koffs.device != x.device:
         raise ValueError(f"packed weights on {packed.weights.device}, input on {x.device}")
     global launches
     lib = load_library()
     out = torch.empty(B, packed.c_out, T, F_DIM, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.rced_stack_forward(
-            x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(),
+            x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(), packed.koffs.data_ptr(),
             packed.plan.ctypes.data, len(packed.layers), B, T, C, packed.c_out,
             packed.in_row * ROW, packed.out_row * ROW, packed.smem_floats,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"rced_stack launch failed: {lib.rced_stack_error_string(rc).decode()} ({rc})"
-        )
+    _check(lib, rc, "launch")
     launches += 1
     return out
 

@@ -23,10 +23,13 @@ NAMES = ["FullyCNN", "FullyCNNV2", "FullyCNNV3"]
 PROBES = {p.name: (m, p) for m, p in all_probes()}
 
 
-def numpy_params(name, seed):
+def numpy_params(name, seed, centred_bn=False):
     """(params, bn_state) as the JAX package holds them (HWIO kernels), drawn
     with numpy from the model's layer specs: Glorot-range kernels, and
-    non-trivial biases, BN affine and BN statistics."""
+    non-trivial biases, BN affine and BN statistics.  BN means are U(0, 1),
+    or U(-0.5, 0.5) with `centred_bn`: the uncentred shift leaves most of
+    V2's and all of V3's inner stack at 0 on inputs in [0, 1), while the
+    centred one keeps every layer's ReLUs alive."""
     rng = np.random.default_rng(seed)
     params, bn, ch = {}, {}, 1
     for spec in get_model(name).layers:
@@ -40,7 +43,7 @@ def numpy_params(name, seed):
             p["gamma"] = (1 + 0.1 * rng.standard_normal(spec.out_ch)).astype(np.float32)
             p["beta"] = (0.1 * rng.standard_normal(spec.out_ch)).astype(np.float32)
             bn[spec.name] = {
-                "mean": rng.random(spec.out_ch).astype(np.float32),
+                "mean": (rng.random(spec.out_ch) - (0.5 if centred_bn else 0.0)).astype(np.float32),
                 "var": (1 + rng.random(spec.out_ch)).astype(np.float32),
             }
         params[spec.name] = p
@@ -68,23 +71,49 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def assert_live(ref, share=0.1):
+    """A stack output that can tell a right kernel from a wrong one: more
+    than `share` of it nonzero and more than `share` of it distinct values
+    (not the zeros or bias-only constants of ReLUs that never fire)."""
+    n = ref.numel()
+    assert (ref != 0).sum().item() > share * n, "the stack's output is mostly 0"
+    assert ref.unique().numel() > share * n, "the stack's output takes few distinct values"
+
+
 def _packed(name, seed, device):
-    params, bn = params_from_numpy(*numpy_params(name, seed), device=device)
+    params, bn = params_from_numpy(*numpy_params(name, seed, centred_bn=True), device=device)
     return rced_stack.pack_inference_stack(get_model(name), params, bn)
 
 
+# (B, T): the JAX kernel's test shapes (T=45 is not a multiple of its
+# 32-frame tile), the 1.5 s and 30 s requests, and a batch of 8 s
+STACK_SHAPES = [(2, 70), (2, 45), (1, 124), (1, 1999)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", NAMES)
-@pytest.mark.parametrize("T", [70, 45])
-def test_kernel_matches_plain_on_cuda(cuda_device, name, T):
-    """T=45 is not a multiple of the JAX kernel's 32-frame tile."""
+@pytest.mark.parametrize(
+    "name,B,T", [(n, B, T) for n in NAMES for B, T in STACK_SHAPES] + [("FullyCNNV2", 4, 499)]
+)
+def test_kernel_matches_plain_on_cuda(cuda_device, name, B, T):
     packed = _packed(name, 1, cuda_device)
-    x = torch.rand(2, packed.c_in, T, 129, generator=torch.Generator().manual_seed(T)).to(cuda_device)
+    x = torch.rand(B, packed.c_in, T, 129, generator=torch.Generator().manual_seed(T)).to(cuda_device)
     before = rced_stack.launches
     got = rced_stack.stack_forward(packed, x)
     torch.cuda.synchronize()
     assert rced_stack.launches == before + 1
-    torch.testing.assert_close(got, rced_stack.stack_forward_plain(packed, x), rtol=1e-4, atol=1e-5)
+    ref = rced_stack.stack_forward_plain(packed, x)
+    assert_live(ref)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_kernel_repeats_bit_for_bit_on_cuda(cuda_device, name):
+    """No atomics and a fixed order of products: two launches agree."""
+    packed = _packed(name, 2, cuda_device)
+    x = torch.rand(3, packed.c_in, 97, 129, generator=torch.Generator().manual_seed(9)).to(cuda_device)
+    assert_live(rced_stack.stack_forward_plain(packed, x))
+    assert torch.equal(rced_stack.stack_forward(packed, x), rced_stack.stack_forward(packed, x))
 
 
 @pytest.mark.cuda
