@@ -74,12 +74,18 @@ for an H100) and `nvcc`.  It imports only the port
      output against its plain version on the card (rtol 1e-5, atol 1e-5 *
      max|plain|) and, for the zero-boundary probes, cuDNN's F.conv2d; times
      each (kernel, plain and library device time per call from
-     torch.profiler, and the call's time with CUDA events) beside its
-     bound; then runs the probes' CLI once;
+     torch.profiler, and the kernel's and F.conv2d's call times back to
+     back with CUDA events) beside its bounds: for `freq_conv` (3xTF32
+     `mma.sync`) the 3xTF32 bound, the float32 one, and the floor that
+     mma.sync's measured rate sets on the products its launch plan
+     computes; prints each `freq_conv` launch plan (grid, blocks per SM,
+     tile, warps, m16 tiles skipped); then runs the probes' CLI once;
  13. holds `freq_conv` against its plain version and F.conv2d on V2's 14
      inner layer shapes at 64 x 8 s (NCHW activations, weights through
-     `params_from_numpy`) and times each against both and its bound; logs
-     the 14-layer sums beside `rced_stack` and the cuDNN stack of phase 7;
+     `params_from_numpy`) and times each against both, its bounds and
+     floor, with its launch plan, and under two other plans (one block
+     per row; one m16 tile a warp); logs the 14-layer sums beside
+     `rced_stack` and the cuDNN stack of phase 7;
  14. times `freq_conv_stack` against `depth` launches of `freq_conv` and
      its plain version at roll2's shape, depths 1, 4, 8 and 16, after
      holding all three equal;
@@ -122,7 +128,8 @@ PARITY_MOMENT_TOL = 1e-3
 PARITY_UPDATE_TOL = 0.2
 DW_TOL = 1e-4  # blocked_dw against plain: rtol, and atol = DW_TOL * max|plain|
 # freq_conv / freq_conv_stack against plain (and cuDNN): rtol, and atol =
-# PROBE_TOL * max|plain|; float32 sums of up to 352 terms in another order.
+# PROBE_TOL * max|plain|; float32 sums of up to 352 terms in another order
+# (freq_conv's products in 3xTF32, each within about 2^-21 of float32's).
 PROBE_TOL = 1e-5
 
 
@@ -938,6 +945,29 @@ def bound_of(flop, nbytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def tf32_bound_of(flop, nbytes):
+    """(bound ms, what bounds it) of a 3xTF32 kernel: three TF32 products
+    for each float32 one at the data sheet's 495 TFLOP/s, or the bytes."""
+    t_ops, t_bytes = 3 * flop / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations, 3xTF32 tensor cores" if t_ops >= t_bytes else "bytes")
+
+
+def conv_plan_fields(plan, rate):
+    """The launch-plan fields phases 12 and 13 print for a `freq_conv`
+    launch, and the floor (ms) that mma.sync's measured TF32 rate `rate`
+    (TFLOP/s) sets on the products the plan computes (three a multiply-add
+    pair of its m16n8k8 tiles)."""
+    floor_ms = 3 * 2.0 * plan.padded_macs / (rate * 1e12) * 1e3
+    fields = {
+        "grid": plan.grid, "blocks_per_sm": plan.blocks_per_sm, "threads": plan.threads,
+        "tile": plan.tile, "m16_tiles_a_warp": plan.mb, "k_split": plan.ksplit,
+        "persistent": plan.buffers == 2, "staging": "channel-major" if plan.channel_major else "position-major",
+        "computed_m16_tiles": plan.computed_tiles, "skipped_m16_tiles": plan.skipped_tiles,
+        "smem_bytes": plan.smem_bytes,
+    }
+    return fields, floor_ms
+
+
 def conv2d_call(x, w, options):
     """The one PyTorch call that computes a `freq_conv` on (x, w): cuDNN's
     F.conv2d on the NCHW view, for a zero boundary with symmetric padding
@@ -973,9 +1003,10 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def run_probe_path(dev) -> dict:
-    """Phase (a): every probe of `fullycnnspeechenhancement_torch.probes` at
-    its script's shapes.  Returns per-kernel summaries (launches, errors)."""
+def run_probe_path(dev, rate: float) -> dict:
+    """Phase 12: every probe of `fullycnnspeechenhancement_torch.probes` at
+    its script's shapes.  Returns per-kernel summaries (launches, errors)
+    and the rows."""
     from fullycnnspeechenhancement_torch.ops import freq_conv as fc
     from fullycnnspeechenhancement_torch.probes import __main__ as probes_main
     from fullycnnspeechenhancement_torch.probes import all_probes
@@ -1016,7 +1047,6 @@ def run_probe_path(dev) -> dict:
             lib, why = None, "a chain of layers: no single PyTorch call"
         if lib is not None:
             check_close(f"{probe.name} conv2d", probe.result(lib()), out, PROBE_TOL, PROBE_TOL * scale)
-        bound, by = bound_of(flop, nbytes)
         lib_ms = busy_ms(lib) if lib is not None else None
         if lib is not None and lib_ms is None:
             why = "not measured: the profiler recorded no device event"
@@ -1027,8 +1057,18 @@ def run_probe_path(dev) -> dict:
             "plain_ms": busy_ms(lambda: probe(*args, plain=True), reps=5),
             "library_ms": lib_ms,
             "call_ms": cuda_ms(lambda: probe(*args), reps=50),
-            "bound_ms": bound, "bound_by": by, "flop": flop,
+            "library_call_ms": cuda_ms(lib, reps=50) if lib is not None else None,
+            "flop": flop,
         }
+        if probe.kernel == "freq_conv":
+            # 3xTF32 mma.sync: its bound, the float32 one, and mma.sync's floor
+            row["bound_ms"], row["bound_by"] = tf32_bound_of(flop, nbytes)
+            row["bound_fp32_simt_ms"] = bound_of(flop, nbytes)[0]
+            plan = fc.launch_plan(x, w, **{k: v for k, v in probe.options.items() if k != "scale"})
+            row["plan"], row["mma_sync_floor_ms"] = conv_plan_fields(plan, rate)
+            log(f"launch plan {probe.name}: " + json.dumps(row["plan"]))
+        else:
+            row["bound_ms"], row["bound_by"] = bound_of(flop, nbytes)
         if why:
             row["library"] = why
         rows.append(row)
@@ -1038,11 +1078,39 @@ def run_probe_path(dev) -> dict:
     return {"summary": summary, "rows": rows}
 
 
-def run_v2_layers(dev, stack_entry: dict) -> dict:
-    """Phase (b): `freq_conv` on V2's 14 inner layer shapes at 64 x 8 s
+# The launch plans phase 13 times beside freq_conv's own, by the module
+# constants that choose them: one block per row instead of persistent
+# blocks, and one m16 tile a warp instead of pairs.
+PLAN_ALTERNATIVES = {
+    "one_block_per_row_ms": {"PERSISTENT_RATIO": 1 << 40},
+    "one_m16_tile_a_warp_ms": {"PAIR_MTILES": 1 << 40},
+}
+
+
+def plan_alternatives(fc, call) -> dict:
+    """Device ms per `call` under each plan of PLAN_ALTERNATIVES, then the
+    module's own constants and plans again."""
+    out = {}
+    for name, consts in PLAN_ALTERNATIVES.items():
+        saved = {k: getattr(fc, k) for k in consts}
+        try:
+            for k, v in consts.items():
+                setattr(fc, k, v)
+            fc.replan()
+            out[name] = cuda_ms(call, reps=10)
+        finally:
+            for k, v in saved.items():
+                setattr(fc, k, v)
+            fc.replan()
+    return out
+
+
+def run_v2_layers(dev, stack_entry: dict, rate: float) -> dict:
+    """Phase 13: `freq_conv` on V2's 14 inner layer shapes at 64 x 8 s
     (NCHW activations [B, C, T, 129] viewed as [B, T, 129, C]), weights
     drawn with numpy in HWIO and brought over by `params_from_numpy`;
-    against its plain version, cuDNN's F.conv2d and its bound."""
+    against its plain version, cuDNN's F.conv2d, its bounds and the floor
+    mma.sync's measured rate `rate` sets on its launch plan."""
     import torch.nn.functional as F
 
     from fullycnnspeechenhancement_torch.config import DSPConfig
@@ -1063,7 +1131,8 @@ def run_v2_layers(dev, stack_entry: dict) -> dict:
     B, T = 64, DSPConfig().num_frames(8 * SR)
     gen = torch.Generator(device=dev).manual_seed(31)
     cin = model.layers[0].out_ch
-    tot = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "flop": 0.0, "bytes": 0.0, "max_abs_err": 0.0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "flop": 0.0, "bytes": 0.0, "max_abs_err": 0.0,
+           "bound_3xtf32_ms": 0.0, "mma_sync_floor_ms": 0.0, "padded_macs": 0.0}
     for spec in model.layers[1:-1]:
         w_oihw = params[spec.name]["w"]
         kw = w_oihw.shape[-1]
@@ -1079,13 +1148,25 @@ def run_v2_layers(dev, stack_entry: dict) -> dict:
         del ref, lib
         k_ms = cuda_ms(lambda: fc.freq_conv(xv, w), reps=10)
         c_ms = cuda_ms(lambda: F.conv2d(x, w_oihw, padding=(0, (kw - 1) // 2)), reps=10)
+        alt = plan_alternatives(fc, lambda: fc.freq_conv(xv, w))
         k_ms_2 = cuda_ms(lambda: fc.freq_conv(xv, w), reps=10)
         p_ms = cuda_ms(lambda: fc.freq_conv_plain(xv, w), reps=2, warmup=1)
         flop, nbytes = conv_work(xv, w, {}, got.numel())
         bound, _ = bound_of(flop, nbytes)
+        bound3, by3 = tf32_bound_of(flop, nbytes)
+        plan = fc.launch_plan(xv, w)
+        fields, floor_ms = conv_plan_fields(plan, rate)
         log(f"  V2 {spec.name} {cin}->{spec.out_ch} kw={kw}: freq_conv {k_ms:.4f} / {k_ms_2:.4f} ms, "
-            f"cuDNN conv2d {c_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({flop:.4e} FLOP), kernel at {100 * bound / k_ms:.1f}% of bound, max abs err {err:.3e}")
+            f"cuDNN conv2d {c_ms:.4f} ms, plain {p_ms:.4f} ms; bounds {bound3:.4f} ms 3xTF32 ({by3}), "
+            f"{bound:.4f} ms float32 ({flop:.4e} FLOP); mma.sync floor {floor_ms:.4f} ms; kernel at "
+            f"{100 * bound3 / (k_ms + k_ms_2) * 2:.1f}% of the 3xTF32 bound, "
+            f"{100 * floor_ms / (k_ms + k_ms_2) * 2:.1f}% of the floor; max abs err {err:.3e}; plan "
+            + json.dumps(fields) + "; other plans (ms): " + json.dumps({k: round(v, 4) for k, v in alt.items()}))
+        for name, ms in alt.items():
+            tot[name] = tot.get(name, 0.0) + ms
+        tot["bound_3xtf32_ms"] += bound3
+        tot["mma_sync_floor_ms"] += floor_ms
+        tot["padded_macs"] += plan.padded_macs
         tot["ms"] += (k_ms + k_ms_2) / 2
         tot["plain_ms"] += p_ms
         tot["cudnn_ms"] += c_ms
@@ -1094,11 +1175,17 @@ def run_v2_layers(dev, stack_entry: dict) -> dict:
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         cin = spec.out_ch
         del x, xv, got
-    tot["bound_ms"], tot["bound_by"] = bound_of(tot["flop"], tot["bytes"])
+    tot["bound_fp32_simt_ms"] = bound_of(tot["flop"], tot["bytes"])[0]
+    tot["bound_ms"], tot["bound_by"] = tf32_bound_of(tot["flop"], tot["bytes"])
+    tot["padded_product_ratio"] = 2 * tot["padded_macs"] / tot["flop"]
     log(f"V2 14 inner layers at {B} x 8 s (T={T}): freq_conv sum {tot['ms']:.3f} ms, cuDNN conv2d sum "
-        f"{tot['cudnn_ms']:.3f} ms, plain sum {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
-        f"({tot['flop']:.4e} FLOP); same run: rced_stack {stack_entry['ms']:.3f} ms, cuDNN stack "
-        f"{stack_entry['cudnn_stack_ms']:.3f} ms")
+        f"{tot['cudnn_ms']:.3f} ms, plain sum {tot['plain_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms "
+        f"({tot['bound_by']}; {tot['flop']:.4e} FLOP, {tot['bytes']:.4e} B; float32 {tot['bound_fp32_simt_ms']:.3f} "
+        f"ms), sum of per-layer 3xTF32 bounds {tot['bound_3xtf32_ms']:.3f} ms; the tiles compute "
+        f"{tot['padded_product_ratio']:.4f}x the products, mma.sync floor {tot['mma_sync_floor_ms']:.3f} ms at "
+        f"{rate:.1f} TFLOP/s (kernel at {100 * tot['mma_sync_floor_ms'] / tot['ms']:.1f}% of it); same run: "
+        f"rced_stack {stack_entry['ms']:.3f} ms, cuDNN stack {stack_entry['cudnn_stack_ms']:.3f} ms; "
+        f"other plans, summed: " + json.dumps({k: round(tot[k], 3) for k in PLAN_ALTERNATIVES}))
     return tot
 
 
@@ -1259,10 +1346,10 @@ def main() -> int:
         phase("serving", t0)
         dw_entry = run_training(dev, tmp, mma_rate)
     t0 = time.perf_counter()
-    probe_path = run_probe_path(dev)
+    probe_path = run_probe_path(dev, mma_rate)
     phase("probe path", t0)
     t0 = time.perf_counter()
-    v2 = run_v2_layers(dev, stack_entry)
+    v2 = run_v2_layers(dev, stack_entry, mma_rate)
     phase("freq_conv at V2 width", t0)
     t0 = time.perf_counter()
     chain = run_chain(dev)
@@ -1283,6 +1370,13 @@ def main() -> int:
         "bound_by": v2["bound_by"],
         "library_ms": v2["cudnn_ms"],
         "library": "F.conv2d (cuDNN, TF32 off), one call per layer",
+        "mma_sync_tf32_tflops": mma_rate,
+        # computed from this run's inputs, plans and the rate above, not timed
+        "derived": {
+            "bound_fp32_simt_ms": v2["bound_fp32_simt_ms"],
+            "padded_product_ratio": v2["padded_product_ratio"],
+            "mma_sync_floor_ms": v2["mma_sync_floor_ms"],
+        },
         "at": "V2's 14 inner layers at 64 x 8 s, summed; launches on the probe path",
     }
     deep = chain[max(chain)]

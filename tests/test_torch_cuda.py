@@ -250,8 +250,8 @@ def test_freq_conv_matches_plain_on_v2_layers_on_cuda(cuda_device, layer):
 )
 def test_freq_conv_options_match_plain_on_cuda(cuda_device, P, K, lo, dil, circular, period,
                                                valid, relu, scale):
-    """Several tiles of 256 positions with zero or wrapped halos, masks
-    whose period is not the tile, taps wider than the row."""
+    """Several tiles a row with zero or wrapped halos, masks whose period
+    is not the tile, taps wider than the row."""
     g = torch.Generator().manual_seed(P + K)
     x = torch.randn(2, 3, P, 6, generator=g).to(cuda_device)
     w = torch.randn(K, 6, 9, generator=g).to(cuda_device)
@@ -262,11 +262,106 @@ def test_freq_conv_options_match_plain_on_cuda(cuda_device, P, K, lo, dil, circu
     _close_to_plain(got, freq_conv.freq_conv_plain(x, w, **opts))
 
 
+# (B, R, P, C, D, layout): V2 layer shapes at T = 37 to 499 frames in the
+# port's NCHW activations and in NHWC; D not a multiple of 8, D = 1, and
+# D = 45 (two passes of n8 tiles); 64 x 499 rows run on persistent blocks
+V2_CONV_SHAPES = [
+    (2, 64, 129, 23, 25, "nchw"), (2, 64, 129, 23, 25, "nhwc"), (1, 499, 129, 10, 12, "nchw"),
+    (3, 70, 129, 25, 23, "nhwc"), (2, 64, 129, 19, 1, "nchw"), (1, 80, 129, 12, 1, "nhwc"),
+    (2, 64, 129, 21, 19, "nchw"), (1, 37, 129, 14, 45, "nhwc"), (64, 499, 129, 25, 23, "nchw"),
+]
+
+
+def _conv_input(shape, seed, device):
+    B, R, P, C, _, layout = shape
+    g = torch.Generator().manual_seed(seed)
+    if layout == "nchw":
+        return torch.randn(B, C, R, P, generator=g).to(device).permute(0, 2, 3, 1)
+    return torch.randn(B, R, P, C, generator=g).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", V2_CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kw", [5, 11])
+def test_freq_conv_tensor_cores_match_plain_on_v2_shapes_on_cuda(cuda_device, shape, kw):
+    """The 3xTF32 kernel on NCHW and NHWC views at V2 widths, T >= 37
+    frames (whole rows of 129 bins a tile, two m16 tiles a warp at D <=
+    24, persistent blocks at 64 x 499): one launch, y in x's dimension
+    order, equal to the plain version."""
+    x = _conv_input(shape, kw, cuda_device)
+    w = torch.randn(kw, shape[3], shape[4], generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    before = freq_conv.launches
+    got = freq_conv.freq_conv(x, w)
+    torch.cuda.synchronize()
+    assert freq_conv.launches == before + 1
+    order = sorted(range(4), key=lambda i: x.stride(i), reverse=True)
+    assert got.permute(order).is_contiguous()
+    _close_to_plain(got, freq_conv.freq_conv_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [7, 129, 16_384])
+@pytest.mark.parametrize("K,lo", [(11, None), (1, 3), (4, -5)])
+def test_freq_conv_circular_rows_on_cuda(cuda_device, P, K, lo):
+    """Circular rows shorter than an m16 tile, of one V2 row, and of the
+    roll layout's 64 frames (tiles that cut across frames)."""
+    g = torch.Generator().manual_seed(P + K)
+    x = torch.rand(32, P, generator=g).to(cuda_device).t()[None, None]
+    w = torch.rand(K, 24, 32, generator=g).to(cuda_device).transpose(1, 2)[:, :, :20]
+    _close_to_plain(freq_conv.freq_conv(x, w, lo=lo, circular=True),
+                    freq_conv.freq_conv_plain(x, w, lo=lo, circular=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_freq_conv_dilated_stride0_weights_on_cuda(cuda_device, layout):
+    """min.k4's form: two taps 6 bins apart that share one weight matrix
+    through a stride-0 view, lo = 3."""
+    x = _conv_input((1, 64, 129, 25, 25, layout), 6, cuda_device)
+    w = torch.rand(25, 25, generator=torch.Generator().manual_seed(6)).to(cuda_device)[None].expand(2, 25, 25)
+    opts = dict(lo=3, dilation=6)
+    _close_to_plain(freq_conv.freq_conv(x, w, **opts), freq_conv.freq_conv_plain(x, w, **opts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("period,valid", [(256, 129), (64, 17), (48, 0)])
+def test_freq_conv_skips_masked_tiles_on_cuda(cuda_device, period, valid):
+    """Masks whose dead lanes fill whole m16 tiles (skipped, written as
+    zeros) and leave partial ones (computed, then masked), with ReLU and a
+    scale; the plan counts the skipped tiles."""
+    g = torch.Generator().manual_seed(period + valid)
+    x = torch.randn(16, 16 * 256, generator=g).to(cuda_device).t()[None, None]
+    w = torch.randn(11, 16, 16, generator=g).to(cuda_device)
+    opts = dict(circular=True, period=period, valid=valid, relu=True, scale=0.25)
+    got = freq_conv.freq_conv(x, w, **opts)
+    ref = freq_conv.freq_conv_plain(x, w, **opts)
+    plan = freq_conv.launch_plan(x, w, **{k: v for k, v in opts.items() if k != "scale"})
+    p = torch.arange(16 * 256).view(-1, 16)
+    assert plan.skipped_tiles == int((~(p % period < valid).any(1)).sum())
+    assert plan.skipped_tiles > 0
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * max(ref.abs().max().item(), 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv.vA", "roll.k2", "min.min2_k5"])
+def test_freq_conv_repeats_bit_for_bit_on_cuda(cuda_device, name):
+    """No atomics and a fixed order of products: two launches agree, also
+    on persistent blocks (V2's encode_8 at 64 x 499 rows)."""
+    module, probe = PROBES[name]
+    arrays = module.inputs(np.random.default_rng(1))
+    args = [torch.as_tensor(arrays[a], device=cuda_device) for a in probe.args]
+    assert torch.equal(probe(*args), probe(*args))
+    x = _conv_input((64, 499, 129, 23, 25, "nchw"), 2, cuda_device)
+    w = torch.randn(11, 23, 25, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    assert freq_conv.launch_plan(x, w).buffers == 2
+    assert torch.equal(freq_conv.freq_conv(x, w), freq_conv.freq_conv(x, w))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", [1, 2, 5])
 def test_freq_conv_stack_matches_chained_launches_on_cuda(cuda_device, depth):
-    """The chain in one launch against `depth` launches of freq_conv: the
-    same sums in the same order, plus exact zeros."""
+    """The chain in one launch (float32 SIMT) against `depth` launches of
+    freq_conv (3xTF32 tensor cores), and both against the plain version."""
     g = torch.Generator().manual_seed(depth)
     x = torch.rand(32, 8 * 256, generator=g).to(cuda_device)
     w = (0.05 * torch.rand(11, 32, 32, generator=g)).to(cuda_device)
@@ -281,7 +376,7 @@ def test_freq_conv_stack_matches_chained_launches_on_cuda(cuda_device, depth):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["float64", "taps", "w_shape", "stack_strided", "stack_halo"])
+@pytest.mark.parametrize("bad", ["float64", "taps", "w_shape", "c_taps", "stack_strided", "stack_halo"])
 def test_freq_conv_raises_instead_of_falling_back(cuda_device, bad):
     x = torch.rand(1, 2, 129, 5, device=cuda_device)
     w = torch.rand(11, 5, 6, device=cuda_device)
@@ -291,6 +386,9 @@ def test_freq_conv_raises_instead_of_falling_back(cuda_device, bad):
         "float64": lambda: freq_conv.freq_conv(x.double(), w.double()),
         "taps": lambda: freq_conv.freq_conv(x, torch.rand(14, 5, 6, device=cuda_device)),
         "w_shape": lambda: freq_conv.freq_conv(x, w[:, :4]),
+        # C * K = 316 * 13: its split weights alone outgrow a block's shared memory
+        "c_taps": lambda: freq_conv.freq_conv(torch.rand(1, 1, 129, 316, device=cuda_device),
+                                              torch.rand(13, 316, 1, device=cuda_device)),
         "stack_strided": lambda: freq_conv.freq_conv_stack(xs.t().contiguous().t(), ws, 2),
         "stack_halo": lambda: freq_conv.freq_conv_stack(xs, ws, 2, valid=253),
     }
