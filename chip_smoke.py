@@ -75,11 +75,14 @@ for an H100) and `nvcc`.  It imports only the port
      max|plain|) and, for the zero-boundary probes, cuDNN's F.conv2d; times
      each (kernel, plain and library device time per call from
      torch.profiler, and the kernel's and F.conv2d's call times back to
-     back with CUDA events) beside its bounds: for `freq_conv` (3xTF32
+     back with CUDA events) beside its bounds: for both kernels (3xTF32
      `mma.sync`) the 3xTF32 bound, the float32 one, and the floor that
      mma.sync's measured rate sets on the products its launch plan
-     computes; prints each `freq_conv` launch plan (grid, blocks per SM,
-     tile, warps, m16 tiles skipped); then runs the probes' CLI once;
+     computes, with the padded product ratio; prints each launch plan
+     (`freq_conv`: grid, blocks per SM, tile, warps, m16 tiles skipped;
+     `freq_conv_stack`: cluster, grid, n8 and m16 tiles, warps, K split,
+     blocks per SM and clusters the card holds); then runs the probes'
+     CLI once;
  13. holds `freq_conv` against its plain version and F.conv2d on V2's 14
      inner layer shapes at 64 x 8 s (NCHW activations, weights through
      `params_from_numpy`) and times each against both, its bounds and
@@ -88,7 +91,9 @@ for an H100) and `nvcc`.  It imports only the port
      `rced_stack` and the cuDNN stack of phase 7;
  14. times `freq_conv_stack` against `depth` launches of `freq_conv` and
      its plain version at roll2's shape, depths 1, 4, 8 and 16, after
-     holding all three equal;
+     holding all three equal, beside its 3xTF32 bound, the mma.sync floor
+     of its launch plan and the padded product ratio; and, at depth 16,
+     under one other plan (one block a frame);
  15. prints a `kernels` JSON line (four kernels), the card line again, and
      last the line {"ok": true, "device": {...}}.
 
@@ -968,6 +973,22 @@ def conv_plan_fields(plan, rate):
     return fields, floor_ms
 
 
+def stack_plan_fields(plan, depth: int, rate):
+    """The launch-plan fields phases 12 and 14 print for a
+    `freq_conv_stack` launch, and the floor (ms) that mma.sync's measured
+    TF32 rate `rate` (TFLOP/s) sets on the products the plan computes in a
+    chain of `depth` layers (three a multiply-add pair of its m16n8k8
+    tiles)."""
+    floor_ms = 3 * 2.0 * plan.padded_macs(depth) / (rate * 1e12) * 1e3
+    fields = {
+        "cluster": plan.cluster, "grid": plan.grid, "blocks_per_sm": plan.blocks_per_sm,
+        "clusters_on_card": plan.clusters_on_card, "threads": plan.threads,
+        "n8_tiles_a_block": plan.tiles, "m16_tiles": plan.mtiles, "m16_tiles_a_warp": plan.mb,
+        "k_split": plan.ksplit, "k8_chunks": plan.chunks, "smem_bytes": plan.smem_bytes,
+    }
+    return fields, floor_ms
+
+
 def conv2d_call(x, w, options):
     """The one PyTorch call that computes a `freq_conv` on (x, w): cuDNN's
     F.conv2d on the NCHW view, for a zero boundary with symmetric padding
@@ -1068,7 +1089,12 @@ def run_probe_path(dev, rate: float) -> dict:
             row["plan"], row["mma_sync_floor_ms"] = conv_plan_fields(plan, rate)
             log(f"launch plan {probe.name}: " + json.dumps(row["plan"]))
         else:
-            row["bound_ms"], row["bound_by"] = bound_of(flop, nbytes)
+            row["bound_ms"], row["bound_by"] = tf32_bound_of(flop, nbytes)
+            row["bound_fp32_simt_ms"] = bound_of(flop, nbytes)[0]
+            plan = fc.stack_launch_plan(x, w, frame=probe.options["frame"], valid=probe.options["valid"])
+            row["plan"], row["mma_sync_floor_ms"] = stack_plan_fields(plan, probe.options["depth"], rate)
+            row["padded_product_ratio"] = 2 * plan.padded_macs(probe.options["depth"]) / flop
+            log(f"launch plan {probe.name}: " + json.dumps(row["plan"]))
         if why:
             row["library"] = why
         rows.append(row)
@@ -1087,17 +1113,17 @@ PLAN_ALTERNATIVES = {
 }
 
 
-def plan_alternatives(fc, call) -> dict:
-    """Device ms per `call` under each plan of PLAN_ALTERNATIVES, then the
+def plan_alternatives(fc, call, alternatives=PLAN_ALTERNATIVES, timer=None) -> dict:
+    """Device ms per `call` under each plan of `alternatives`, then the
     module's own constants and plans again."""
     out = {}
-    for name, consts in PLAN_ALTERNATIVES.items():
+    for name, consts in alternatives.items():
         saved = {k: getattr(fc, k) for k in consts}
         try:
             for k, v in consts.items():
                 setattr(fc, k, v)
             fc.replan()
-            out[name] = cuda_ms(call, reps=10)
+            out[name] = (timer or (lambda f: cuda_ms(f, reps=10)))(call)
         finally:
             for k, v in saved.items():
                 setattr(fc, k, v)
@@ -1189,9 +1215,18 @@ def run_v2_layers(dev, stack_entry: dict, rate: float) -> dict:
     return tot
 
 
-def run_chain(dev) -> dict:
-    """Phase (c): `freq_conv_stack` against `depth` launches of `freq_conv`
-    at roll2's shape (x [32, 64 * 256], im2col weights), depths 1-16."""
+# The launch plan phase 14 times beside freq_conv_stack's own at the
+# deepest chain, by the module constant that chooses it: one block a frame
+# instead of a cluster of two.
+STACK_PLAN_ALTERNATIVES = {"one_block_per_frame_ms": {"STACK_CLUSTER": 1}}
+
+
+def run_chain(dev, rate: float) -> dict:
+    """Phase 14: `freq_conv_stack` against `depth` launches of `freq_conv`
+    at roll2's shape (x [32, 64 * 256], im2col weights), depths 1-16,
+    beside its bounds, the floor mma.sync's measured rate `rate` sets on
+    its launch plan, and at the deepest chain under the plan of
+    STACK_PLAN_ALTERNATIVES."""
     from fullycnnspeechenhancement_torch.ops import freq_conv as fc
     from fullycnnspeechenhancement_torch.probes import roll
 
@@ -1210,23 +1245,42 @@ def run_chain(dev) -> dict:
                                  valid=fc.VALID, relu=True)[0, 0].t()
             return h
 
-        got = fc.freq_conv_stack(x, w, depth)
+        def stack():
+            return fc.freq_conv_stack(x, w, depth)
+
+        got = stack()
         ref = fc.freq_conv_stack_plain(x, w, depth)
         scale = ref.abs().max().item()
         err = check_close(f"chain depth {depth}", got, ref, PROBE_TOL, PROBE_TOL * scale)
         check_close(f"chain depth {depth} vs chained launches", chained(), got, PROBE_TOL, PROBE_TOL * scale)
-        s_ms = cuda_ms(lambda: fc.freq_conv_stack(x, w, depth), reps=50)
+        s_ms = cuda_ms(stack, reps=50)
         a_ms = cuda_ms(chained, reps=50)
-        s_busy, a_busy = busy_ms(lambda: fc.freq_conv_stack(x, w, depth)), busy_ms(chained)
+        s_busy, a_busy = busy_ms(stack), busy_ms(chained)
+        alt = {}
+        if depth == max(roll.DEPTHS):
+            alt = plan_alternatives(fc, stack, STACK_PLAN_ALTERNATIVES, busy_ms)
+        s_busy_2 = busy_ms(stack)
         p_ms = cuda_ms(lambda: fc.freq_conv_stack_plain(x, w, depth), reps=5)
         flop, nbytes = chain_work(x, w, probe.options)
-        bound, by = bound_of(flop, nbytes)
-        log(f"chain depth {depth}: freq_conv_stack {s_ms:.4f} ms (device {fmt_ms(s_busy)}), {depth} x freq_conv "
-            f"{a_ms:.4f} ms (device {fmt_ms(a_busy)}), plain {p_ms:.4f} ms, bound {bound:.4f} ms by {by} "
-            f"({flop:.4e} FLOP), max abs err {err:.3e} of max|plain| {scale:.3e}")
-        out[depth] = {"ms": s_ms, "device_ms": s_busy, "chained_ms": a_ms, "chained_device_ms": a_busy,
-                      "plain_ms": p_ms, "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-                      "max_rel_err": err / scale}
+        bound3, by3 = tf32_bound_of(flop, nbytes)
+        bound = bound_of(flop, nbytes)[0]
+        plan = fc.stack_launch_plan(x, w)
+        fields, floor_ms = stack_plan_fields(plan, depth, rate)
+        ratio = 2 * plan.padded_macs(depth) / flop
+        device = [v for v in (s_busy, s_busy_2) if v is not None]
+        dev_ms = sum(device) / len(device) if device else None
+        log(f"chain depth {depth}: freq_conv_stack {s_ms:.4f} ms (device {fmt_ms(s_busy)} / {fmt_ms(s_busy_2)}), "
+            f"{depth} x freq_conv {a_ms:.4f} ms (device {fmt_ms(a_busy)}), plain {p_ms:.4f} ms; bounds "
+            f"{bound3:.4f} ms 3xTF32 ({by3}), {bound:.4f} ms float32 ({flop:.4e} FLOP, {nbytes:.4e} B); the tiles "
+            f"compute {ratio:.4f}x the products, mma.sync floor {floor_ms:.4f} ms at {rate:.1f} TFLOP/s"
+            + (f" (kernel at {100 * floor_ms / dev_ms:.1f}% of it, {100 * bound3 / dev_ms:.1f}% of the "
+               "3xTF32 bound)" if dev_ms else "")
+            + f"; max abs err {err:.3e} of max|plain| {scale:.3e}; plan " + json.dumps(fields)
+            + (("; other plan, device ms: " + json.dumps(alt)) if alt else ""))
+        out[depth] = {"ms": s_ms, "device_ms": dev_ms, "chained_ms": a_ms, "chained_device_ms": a_busy,
+                      "plain_ms": p_ms, "bound_ms": bound3, "bound_by": by3, "bound_fp32_simt_ms": bound,
+                      "mma_sync_floor_ms": floor_ms, "padded_product_ratio": ratio, "max_abs_err": err,
+                      "max_rel_err": err / scale, **alt}
     return out
 
 
@@ -1352,7 +1406,7 @@ def main() -> int:
     v2 = run_v2_layers(dev, stack_entry, mma_rate)
     phase("freq_conv at V2 width", t0)
     t0 = time.perf_counter()
-    chain = run_chain(dev)
+    chain = run_chain(dev, mma_rate)
     phase("chains", t0)
 
     conv_sum, stack_sum = probe_path["summary"]["freq_conv"], probe_path["summary"]["freq_conv_stack"]
@@ -1390,12 +1444,21 @@ def main() -> int:
         "max_abs_err": max(stack_sum["max_abs_err"], deep["max_abs_err"]),
         "max_rel_err": max(stack_sum["max_rel_err"], deep["max_rel_err"]),
         "ms": deep["ms"],
+        "device_ms": deep["device_ms"],
         "plain_ms": deep["plain_ms"],
         "bound_ms": deep["bound_ms"],
         "bound_by": deep["bound_by"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes a chain of masked circular convs",
         "chained_freq_conv_ms": deep["chained_ms"],
+        "chained_freq_conv_device_ms": deep["chained_device_ms"],
+        "other_plans_device_ms": {k: deep[k] for k in STACK_PLAN_ALTERNATIVES},
+        # computed from this run's inputs, plan and mma.sync's rate, not timed
+        "derived": {
+            "bound_fp32_simt_ms": deep["bound_fp32_simt_ms"],
+            "padded_product_ratio": deep["padded_product_ratio"],
+            "mma_sync_floor_ms": deep["mma_sync_floor_ms"],
+        },
         "at": f"roll2's shape, depth {max(chain)}; launches on the probe path",
     }
     entries = [stack_entry, dw_entry, conv_entry, chain_entry]

@@ -75,17 +75,46 @@
 //
 // freq_conv_stack runs `depth` layers with the same [K, C, C] weights on
 // the flat roll layout [C, N] (frames of `frame` lanes, the first `valid`
-// of them live), with the mask, ReLU and scale after every layer.  One
-// block owns one frame: it keeps the frame's activations in two
-// shared-memory buffers (ping-pong), so the chain reads device memory once
-// and writes it once.  Layer 1 reads its halo from the neighbouring
-// frames, circularly over N, as the probes' roll does; after the mask the
-// pad lanes are zero, so later layers see zero halos.  Its sums are
-// float32 SIMT (4 output channels at 2 positions a thread).
+// of them live), with the mask, ReLU and scale after every layer.  What
+// bounds it on an H100: at roll2's shape (C = 32, 64 frames, K = 11) a
+// chain of 16 needs 2.9166e9 FLOP (17.68 us in 3xTF32) and moves 4.24 MB
+// once, so it is bound by operations; but a frame's layers are serial
+// (layer l + 1 needs all of layer l), each layer is a small GEMM (129
+// positions x 32 channels x 352), and 64 frames give one block a frame 64
+// of the 132 SMs.  What the design does about it:
+// - A cluster of blocks a frame (ops/freq_conv.py::stack_plan: two at
+//   roll2's shape, 128 blocks): each computes its share of the output
+//   channels as whole n8 tiles, with weights staged and split once for
+//   the whole chain, and keeps all C channels of the frame in two
+//   shared-memory buffers (ping-pong), so the chain reads device memory
+//   once and writes it once.
+// - Each layer is freq_conv's 3xTF32 GEMM (gemm_chunks): M = the frame's
+//   positions (9 m16 tiles for 129 bins, rows past `valid` computed and
+//   not written), N = the block's channels, K = C * taps through an offset
+//   table; at roll2's shape a warp takes two m16 tiles, which share each B
+//   fragment load (shared-memory bandwidth binds the mma loop), and one of
+//   3 K splits: 15 warps.
+// - The exchange: a block writes its outputs into its own buffer, then
+//   sends each of its channel rows to every peer as one bulk copy
+//   (cp.async.bulk shared::cta -> shared::cluster) that completes on the
+//   peer's mbarrier; a thread's stores into a peer's shared memory wait on
+//   one another, and a cluster barrier a layer left the SMs idle while the
+//   last copy landed.  K runs over the block's own channels first, so a
+//   layer multiplies those while the peers' rows are still in flight.  A
+//   peer's rows arrive only after it has read its last input, so no
+//   barrier guards the buffers.
+// - Layer 1 reads its halo from the neighbouring frames, circularly over
+//   N, as the probes' roll does; after the mask the pad lanes are zero, so
+//   later layers see zero halos.  A block zeros the halo of its own rows
+//   only: its peers' rows come with the halo they zeroed.  The last layer
+//   writes y, and the masked lanes are written as zeros.
+// - Where a block's share of the split weights and its buffers outgrow
+//   shared memory (C > 50 at K = 11), the plan uses clusters of up to 8.
 //
 // Both kernels launch on the caller's stream, never synchronise and
 // allocate nothing.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -165,25 +194,25 @@ __device__ void build_tables(int* off, long long* woff, const Conv& c) {
 
 // Copies w into `raw` in fragment order, unsplit: slot ((ng * chunks + ch)
 // * NT + n) * 32 + lane holds (B[k0][d], B[k0 + 4][d]) for k0 = 8ch + t,
-// d = 8 (ng * NT + n) + g, zeros past C * K and D.
+// d = 8 (ng * NT + n) + g, zeros past kc = C * K and D.
 template <int NT>
 __device__ void copy_weights(float2* raw, const float* __restrict__ w, const long long* woff,
-                             const Conv& c) {
+                             int kc, int D, int chunks, int groups, long long wd) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int g = lane >> 2, t = lane & 3, kc = c.C * c.K;
-  for (int ng = 0; ng < c.groups; ++ng) {
-    for (int ch = warp; ch < c.chunks; ch += nw) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int ng = 0; ng < groups; ++ng) {
+    for (int ch = warp; ch < chunks; ch += nw) {
       const int k0 = 8 * ch + t, k1 = k0 + 4;
       const float* w0 = w + (k0 < kc ? woff[k0] : 0);
       const float* w1 = w + (k1 < kc ? woff[k1] : 0);
-      float2* slot = raw + (ng * c.chunks + ch) * NT * 32 + lane;
+      float2* slot = raw + (ng * chunks + ch) * NT * 32 + lane;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int d = 8 * (ng * NT + n) + g;
-        const long long dd = d < c.D ? d * c.wd : 0;
+        const long long dd = d < D ? d * wd : 0;
         float* dst = reinterpret_cast<float*>(slot + n * 32);
-        copy4(dst, w0 + dd, k0 < kc && d < c.D ? 4 : 0);
-        copy4(dst + 1, w1 + dd, k1 < kc && d < c.D ? 4 : 0);
+        copy4(dst, w0 + dd, k0 < kc && d < D ? 4 : 0);
+        copy4(dst + 1, w1 + dd, k1 < kc && d < D ? 4 : 0);
       }
     }
   }
@@ -215,6 +244,91 @@ __device__ void split_weights(float4* frag, int slots) {
     }
     __syncthreads();
   }
+}
+
+// The products of MB m16 tiles by NT n8 tiles over k8 chunks [ch_begin,
+// ch_end), added into `sum`: A[m][k] = a[i][off[k] + m * ps] (a[i] points at
+// row g of tile i), B from the split fragments `fg` (this lane's slot of
+// chunk 0, n tile 0).  Each chunk adds small*big, big*small, big*big, one
+// pass of each over all n tiles before the next; every kFlushChunks chunks
+// the tensor cores' sums are added into `sum` in float32.
+template <int MB, int NT>
+__device__ __forceinline__ void gemm_chunks(float (&sum)[MB][NT][4], const float* const (&a)[MB],
+                                            const int* off, const float4* fg, int ch_begin,
+                                            int ch_end, int ps) {
+  const int t = threadIdx.x & 3;
+  for (int c0 = ch_begin; c0 < ch_end; c0 += kFlushChunks) {
+    const int c1 = min(c0 + kFlushChunks, ch_end);
+    float acc[MB][NT][4];
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+#pragma unroll 2
+    for (int ch = c0; ch < c1; ++ch) {
+      // A[m][k] = buf[off[k] + m * ps]; this lane's k are 8ch + t, + 4
+      const int o0 = off[8 * ch + t], o1 = off[8 * ch + t + 4];
+      float4 bf[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) bf[n] = fg[(ch * NT + n) * 32];
+#pragma unroll
+      for (int i = 0; i < MB; ++i) {
+        uint32_t ab[4], as[4];
+        split_tf32(a[i][o0], ab[0], as[0]);           // (g, t)
+        split_tf32(a[i][o0 + 8 * ps], ab[1], as[1]);  // (g + 8, t)
+        split_tf32(a[i][o1], ab[2], as[2]);           // (g, t + 4)
+        split_tf32(a[i][o1 + 8 * ps], ab[3], as[3]);  // (g + 8, t + 4)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mma_tf32(acc[i][n], as, __float_as_uint(bf[n].x), __float_as_uint(bf[n].y));
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mma_tf32(acc[i][n], ab, __float_as_uint(bf[n].z), __float_as_uint(bf[n].w));
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mma_tf32(acc[i][n], ab, __float_as_uint(bf[n].x), __float_as_uint(bf[n].y));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[i][n][e] += acc[i][n][e];
+  }
+}
+
+// Adds the K splits' sums into split 0's through `red` (a slot of MB * NT *
+// 4 * 32 floats per warp of splits 1..), in split order.  Every warp of the
+// block must call it: it holds two barriers.
+template <int MB, int NT>
+__device__ __forceinline__ void add_split_sums(float (&sum)[MB][NT][4], float* red, int ks,
+                                               int ksplit, int mwarps, int wm) {
+  constexpr int kSlot = MB * NT * 4 * 32;
+  const int lane = threadIdx.x & 31;
+  if (ks > 0) {
+    float* mine = red + ((ks - 1) * mwarps + wm) * kSlot + lane;
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[((i * NT + n) * 4 + e) * 32] = sum[i][n][e];
+  }
+  __syncthreads();
+  if (ks == 0)
+    for (int s = 1; s < ksplit; ++s) {
+      const float* theirs = red + ((s - 1) * mwarps + wm) * kSlot + lane;
+#pragma unroll
+      for (int i = 0; i < MB; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[i][n][e] += theirs[((i * NT + n) * 4 + e) * 32];
+    }
+  __syncthreads();
 }
 
 // Position q of a row (any integer) -> its element offset along P, and
@@ -293,7 +407,8 @@ freq_conv_kernel(const float* __restrict__ x, const float* __restrict__ w, float
   // the split.  woff lives in the fragments' lower half until the split.
   build_tables(off, reinterpret_cast<long long*>(sm), c);
   __syncthreads();
-  copy_weights<NT>(reinterpret_cast<float2*>(sm) + slots, w, reinterpret_cast<long long*>(sm), c);
+  copy_weights<NT>(reinterpret_cast<float2*>(sm) + slots, w, reinterpret_cast<long long*>(sm),
+                   c.C * c.K, c.D, c.chunks, c.groups, c.wd);
   int item = blockIdx.x;
   int row = item / c.items_per_row;
   long long p0 = static_cast<long long>(item - row * c.items_per_row) * c.tile;
@@ -347,69 +462,11 @@ freq_conv_kernel(const float* __restrict__ x, const float* __restrict__ w, float
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) sum[i][n][e] = 0.f;
-      if (any) {
-        const float4* fg = frag + ng * c.chunks * NT * 32 + lane;
-        for (int c0 = ch_begin; c0 < ch_end; c0 += kFlushChunks) {
-          const int c1 = min(c0 + kFlushChunks, ch_end);
-          float acc[MB][NT][4];
-#pragma unroll
-          for (int i = 0; i < MB; ++i)
-#pragma unroll
-            for (int n = 0; n < NT; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-#pragma unroll 2
-          for (int ch = c0; ch < c1; ++ch) {
-            // A[m][k] = buf[off[k] + m * ps]; this lane's k are 8ch + t, + 4
-            const int o0 = off[8 * ch + t], o1 = off[8 * ch + t + 4];
-            float4 bf[NT];
-#pragma unroll
-            for (int n = 0; n < NT; ++n) bf[n] = fg[(ch * NT + n) * 32];
-#pragma unroll
-            for (int i = 0; i < MB; ++i) {
-              uint32_t ab[4], as[4];
-              split_tf32(a[i][o0], ab[0], as[0]);           // (g, t)
-              split_tf32(a[i][o0 + 8 * ps], ab[1], as[1]);  // (g + 8, t)
-              split_tf32(a[i][o1], ab[2], as[2]);           // (g, t + 4)
-              split_tf32(a[i][o1 + 8 * ps], ab[3], as[3]);  // (g + 8, t + 4)
-              // one pass of each product over all n tiles before the next
-#pragma unroll
-              for (int n = 0; n < NT; ++n)
-                mma_tf32(acc[i][n], as, __float_as_uint(bf[n].x), __float_as_uint(bf[n].y));
-#pragma unroll
-              for (int n = 0; n < NT; ++n)
-                mma_tf32(acc[i][n], ab, __float_as_uint(bf[n].z), __float_as_uint(bf[n].w));
-#pragma unroll
-              for (int n = 0; n < NT; ++n)
-                mma_tf32(acc[i][n], ab, __float_as_uint(bf[n].x), __float_as_uint(bf[n].y));
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < MB; ++i)
-#pragma unroll
-            for (int n = 0; n < NT; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) sum[i][n][e] += acc[i][n][e];
-        }
-      }
-      if (c.ksplit > 1) {  // then groups == 1 and MB == 1: every warp reaches these barriers
-        float* mine = red + ((ks - 1) * c.mwarps + wm) * (NT * 4 * 32) + lane;
-        if (ks > 0)
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32] = sum[0][n][e];
-        __syncthreads();
-        if (ks == 0)
-          for (int s = 1; s < c.ksplit; ++s) {
-            const float* theirs = red + ((s - 1) * c.mwarps + wm) * (NT * 4 * 32) + lane;
-#pragma unroll
-            for (int n = 0; n < NT; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) sum[0][n][e] += theirs[(n * 4 + e) * 32];
-          }
-        __syncthreads();
-      }
+      if (any)
+        gemm_chunks<MB, NT>(sum, a, off, frag + ng * c.chunks * NT * 32 + lane, ch_begin, ch_end,
+                            ps);
+      // then groups == 1 and MB == 1: every warp reaches the barriers
+      if (c.ksplit > 1) add_split_sums<MB, NT>(sum, red, ks, c.ksplit, c.mwarps, wm);
       // C element e of n tile n of tile i: position pa[i] (+ 8 for e >= 2),
       // channel 8 * (ng * NT + n) + 2t + (e & 1)
       if (ks == 0) {
@@ -505,148 +562,351 @@ int conv_blocks_per_sm(int device, int threads, int smem, int* blocks) {
 
 // -- freq_conv_stack -----------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kSlack = 4;  // floats after the last staged row: discarded over-reads
+constexpr int kStackMaxWarps = 18;  // warps a block: m16 tile groups x K splits
+constexpr int kStackMaxCluster = 8;  // the largest cluster the card takes without an opt-in
 
-// ws[(c * K + j) * d4 + d] = w[j, c, d]; zero for d >= cout.
-__device__ __forceinline__ void stage_weights(float* ws, const float* __restrict__ w, int K,
-                                              int cin, int cout, int d4, long long wj,
-                                              long long wc, long long wd) {
-  const int n = cin * K * d4;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int d = i % d4;
-    const int cj = i / d4;
-    const int j = cj % K;
-    const int c = cj / K;
-    ws[i] = d < cout ? __ldg(w + j * wj + c * wc + d * wd) : 0.f;
-  }
-}
+// The geometry and plan of one chain, as an array of int64 filled by
+// ops/freq_conv.py in this order.
+enum StackField {
+  sC, sN, sFrame, sValid, sTaps, sLo,
+  sWj, sWc, sWd,  // element strides of w as [K, C, D]
+  sCluster, sTiles, sGroups, sMtiles, sUnits, sMwarps, sRounds, sKSplit,
+  sChunks, sRowStride, sBufFloats, sGrid, sThreads, sSmemBytes,
+  sFields
+};
 
-// Sums for output channels 4g..4g+3 at two positions: `xr` points at the
-// staged entry of the first position's tap 0 in channel row 0 (rows are
-// `xrow` floats apart); the second position is `half` entries later.
-template <int K>
-__device__ __forceinline__ void conv_item(const float* xr, int xrow, const float4* ws4,
-                                          int groups, int g, int cin, int dil, int half,
-                                          float a0[4], float a1[4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) a0[k] = a1[k] = 0.f;
-  const float4* wg = ws4 + g;
-  for (int c = 0; c < cin; ++c) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const float4 wv = wg[(c * K + j) * groups];
-      const float x0 = xr[j * dil];
-      const float x1 = xr[j * dil + half];
-      a0[0] = fmaf(wv.x, x0, a0[0]);
-      a0[1] = fmaf(wv.y, x0, a0[1]);
-      a0[2] = fmaf(wv.z, x0, a0[2]);
-      a0[3] = fmaf(wv.w, x0, a0[3]);
-      a1[0] = fmaf(wv.x, x1, a1[0]);
-      a1[1] = fmaf(wv.y, x1, a1[1]);
-      a1[2] = fmaf(wv.z, x1, a1[2]);
-      a1[3] = fmaf(wv.w, x1, a1[3]);
+struct Stack {
+  long long N, wj, wc, wd;
+  int C, K, frame, valid, lo, depth;
+  int cluster, tiles, groups, mtiles, units, mwarps, rounds, ksplit, chunks, row_stride,
+      buf_floats;
+};
+
+// The chain's tables for the block whose channels are [d0, d0 + dn): k
+// runs over those channels first (k < K * dn: tap k / dn, channel d0 + k %
+// dn), then over the others, tap-outer and channel-inner in each part, so
+// the chunks of this block's own channels need nothing from its peers.
+// off[k] = c * row_stride + j, woff[k] = j * wj + c * wc; padded k repeat
+// the last.
+__device__ void build_stack_tables(int* off, long long* woff, const Stack& s, int d0, int dn) {
+  const int kc = s.C * s.K, own = s.K * dn, rest = s.C - dn;
+  for (int k = threadIdx.x; k < 8 * s.chunks; k += blockDim.x) {
+    const int kk = min(k, kc - 1);
+    int j, c;
+    if (kk < own) {
+      j = kk / dn;
+      c = d0 + kk - j * dn;
+    } else {
+      j = (kk - own) / rest;
+      c = kk - own - j * rest;
+      if (c >= d0) c += dn;
     }
-    xr += xrow;
+    off[k] = c * s.row_stride + j;
+    woff[k] = j * s.wj + c * s.wc;
   }
 }
 
-// `depth` chained layers on x [C, N] (contiguous) -> y [C, N]; one block per
-// frame of `frame` lanes, of which lanes [0, valid) are live.  Shared
-// memory: the weights [C][K][c4], then two buffers of C rows of
-// xrow = lo + valid + (K - 1 - lo) floats and kSlack floats each; entry s of
-// a row holds lane s - lo of the frame.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
+// A block learns that its peers' rows of a layer are in through an
+// mbarrier of its own shared memory, one per buffer: one arrival (its own,
+// with the bytes it expects) and the bulk copies' bytes complete a phase.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of `parity` to complete.  A copy that never comes
+// traps after about 2^34 cycles (seconds) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t at = smem_addr(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(at), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 34)) __trap();
+  }
+}
+
+// Copies `bytes` (16-byte aligned) of shared memory at `src` to the same
+// place in block `rank` of the cluster, completing on that block's `bar`.
+__device__ __forceinline__ void copy_to_peer(const float* src, uint64_t* bar, int rank,
+                                             uint32_t bytes) {
+  uint32_t dst, peer_bar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(dst) : "r"(smem_addr(src)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer_bar) : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "r"(smem_addr(src)), "r"(bytes), "r"(peer_bar)
+      : "memory");
+}
+
+// Zeros the halo entries of the channel rows [d0, d0 + dn) of `b` (entries
+// [0, lo) and [lo + valid, valid + K - 1)): the masked lanes of the
+// neighbouring frames.  The other rows of `b` come whole from the peers,
+// by bulk copies that a write here would race.
+__device__ void zero_halo(float* b, const Stack& s, int d0, int dn) {
+  const int h = s.K - 1;
+  for (int i = threadIdx.x; i < dn * h; i += blockDim.x) {
+    const int c = d0 + i / h, e = i - (c - d0) * h;
+    b[c * s.row_stride + (e < s.lo ? e : s.valid + e)] = 0.f;
+  }
+}
+
+// `depth` chained layers on x [C, N] (contiguous) -> y [C, N].  One frame
+// of `frame` lanes (the first `valid` live) per cluster of `cluster`
+// blocks; block rank r computes output channels [8 r tiles, 8 (r + 1)
+// tiles), as n8 tiles in `groups` passes of NT.  Every block keeps all C
+// channels of the frame in two buffers (ping-pong): channel-major rows of
+// row_stride floats, entry e of a row lane e - lo of the frame.  Layer 1
+// reads buffer 0, staged with its halo wrapped over N; each layer writes
+// its outputs (masked, ReLU, scaled) into the other buffer, then sends
+// those rows to every peer (bulk copies onto the peer's mbarrier of that
+// buffer); the last layer writes y.  Each layer is a GEMM: M = the frame's
+// positions (m16 tiles), N = this block's channels, K = C * taps
+// (gemm_chunks), the block's own channels first: a layer waits for its
+// peers' rows only after it has multiplied its own.  Warp w = (wm, ks)
+// takes units wm, wm + mwarps, ... (a unit is the MB tiles u, u + units,
+// ...; a tile index past mtiles is computed on tile u's rows and not
+// written) over K split ks.  Rows past valid read unstaged entries and are
+// not written.  Shared memory: the weight fragments (float4 [groups *
+// chunks * NT * 32]), the offsets, two buffers, the split sums, two
+// mbarriers.
+template <int NT, int MB>
+__global__ void __launch_bounds__(32 * kStackMaxWarps)
 freq_conv_stack_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                       float* __restrict__ y, int C, long long N, int frame, int valid, int lo,
-                       int depth, long long wj, long long wc, long long wd, float scale) {
-  extern __shared__ float4 smem4[];
-  const int groups = (C + 3) / 4;
-  const int hi = K - 1 - lo;
-  const int xrow = lo + valid + hi;
-  const int buf = C * xrow + kSlack;
-  const int half = (valid + 1) / 2;
-  float* ws = reinterpret_cast<float*>(smem4);
-  float* in = ws + C * K * groups * 4;
-  float* out = in + buf;
-  const long long base = static_cast<long long>(blockIdx.x) * frame;
+                       float* __restrict__ y, const Stack s, float scale) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) float sm[];
+  const int slots = s.groups * s.chunks * NT * 32;
+  float4* frag = reinterpret_cast<float4*>(sm);
+  int* off = reinterpret_cast<int*>(sm + 4 * slots);
+  float* const buf = sm + 4 * slots + 8 * s.chunks;
+  float* const red = buf + 2 * s.buf_floats;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(red + (s.ksplit - 1) * s.mwarps * MB * NT * 128);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % s.mwarps, ks = warp / s.mwarps;
+  const int rank = blockIdx.x % s.cluster;
+  const long long base = static_cast<long long>(blockIdx.x / s.cluster) * s.frame;
+  const int d0 = 8 * s.tiles * rank;            // this block's first channel
+  const int dn = min(s.C - d0, 8 * s.tiles);  // and its count
+  const int rs = s.row_stride;
 
-  stage_weights(ws, w, K, C, C, groups * 4, wj, wc, wd);
-  // layer 1's input, its halo wrapped over N as the probes' roll wraps
-  for (int i = threadIdx.x; i < C * xrow; i += kThreads) {
-    const int c = i / xrow;
-    const int s = i - c * xrow;
-    long long q = (base + s - lo) % N;
-    if (q < 0) q += N;
-    in[i] = __ldg(x + c * N + q);
-  }
-  for (int i = threadIdx.x; i < kSlack; i += kThreads) in[C * xrow + i] = 0.f;
-  for (int i = threadIdx.x; i < buf; i += kThreads) out[i] = 0.f;
+  // Tables; then the weights and layer 1's input in flight together, and
+  // the zeros that need no input; then the split.  woff lives in the
+  // fragments' lower half until the split.
+  build_stack_tables(off, reinterpret_cast<long long*>(sm), s, d0, dn);
   __syncthreads();
-
-  const int items = groups * half;
-  for (int l = 0; l < depth; ++l) {
-    const bool last = l == depth - 1;
-    if (l == 1) {
-      // `out` held layer 1's input: zero its halo, which from here on
-      // stands for masked lanes of the neighbouring frames
-      for (int i = threadIdx.x; i < C * (lo + hi); i += kThreads) {
-        const int c = i / (lo + hi);
-        const int s = i - c * (lo + hi);
-        out[c * xrow + (s < lo ? s : valid + s)] = 0.f;
+  copy_weights<NT>(reinterpret_cast<float2*>(sm) + slots, w + d0 * s.wd,
+                   reinterpret_cast<long long*>(sm), s.C * s.K, dn, s.chunks, s.groups, s.wd);
+  for (int e = lane; e < s.valid + s.K - 1; e += 32) {
+    long long q = (base + e - s.lo) % s.N;  // the probes' roll wraps over N
+    if (q < 0) q += s.N;
+    for (int c = warp; c < s.C; c += nw) copy4(buf + c * rs + e, x + c * s.N + q, 4);
+  }
+  copy_commit();
+  zero_halo(buf + s.buf_floats, s, d0, dn);  // layer 2's input
+  const int pad = s.frame - s.valid;
+  for (int i = threadIdx.x; i < dn * pad; i += blockDim.x) {
+    const int d = i / pad;
+    y[(d0 + d) * s.N + base + s.valid + (i - d * pad)] = 0.f;  // masked lanes
+  }
+  copy_wait_all();
+  __syncthreads();
+  split_weights(frag, slots);
+  const int row4 = (s.valid + s.K - 1 + 3) / 4;  // float4 of a row's live lanes and halo
+  const uint32_t incoming = 16u * row4 * (s.C - dn);  // the peers' rows of a layer, in bytes
+  cg::cluster_group cluster = cg::this_cluster();
+  if (s.cluster > 1) {
+    if (threadIdx.x == 0) {
+      for (int b = 0; b < 2; ++b) {
+        mbar_init(&bars[b]);
+        mbar_expect(&bars[b], incoming);  // buffer 1 for layer 1's rows, 0 for layer 2's
       }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    for (int it = threadIdx.x; it < items; it += kThreads) {
-      const int gi = it / half;
-      const int p0 = it - gi * half;
-      const bool has_b = p0 + half < valid;
-      float a0[4], a1[4];
-      conv_item<K>(in + p0, xrow, reinterpret_cast<const float4*>(ws), groups, gi, C, 1, half,
-                   a0, a1);
+    cluster.sync();  // the peers run, their mbarriers armed, before anything is sent
+  }
+
+  // K split ks takes its share of the own chunks [0, own) and of the
+  // peers' chunks [own, chunks); a chunk that mixes both is a peers' one
+  const int own = s.cluster > 1 ? s.K * dn / 8 : s.chunks;
+  const int per_own = (own + s.ksplit - 1) / s.ksplit;
+  const int per_peer = (s.chunks - own + s.ksplit - 1) / s.ksplit;
+  const int own_begin = min(own, ks * per_own), own_end = min(own, own_begin + per_own);
+  const int peer_begin = min(s.chunks, own + ks * per_peer);
+  const int peer_end = min(s.chunks, peer_begin + per_peer);
+  for (int l = 0; l < s.depth; ++l) {
+    const float* in = buf + (l & 1) * s.buf_floats;
+    const int out = ((l + 1) & 1) * s.buf_floats;
+    const bool last = l == s.depth - 1;
+    // layer 1 has read its halo: from here on it stands for masked lanes
+    if (l == 1) zero_halo(buf, s, d0, dn);
+    for (int r = 0; r < s.rounds; ++r) {
+      const int u = wm + r * s.mwarps;
+      const bool has = u < s.units;
+      // tile i: positions pa[i] (rows g) and pa[i] + 8
+      const float* a[MB];
+      int pa[MB];
+      bool real[MB];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int d = gi * 4 + k;
-        if (d >= C) continue;
-        const float v0 = fmaxf(a0[k], 0.f) * scale;
-        const float v1 = fmaxf(a1[k], 0.f) * scale;
-        if (last) {
-          y[d * N + base + p0] = v0;
-          if (has_b) y[d * N + base + p0 + half] = v1;
-        } else {
-          out[d * xrow + lo + p0] = v0;
-          if (has_b) out[d * xrow + lo + p0 + half] = v1;
+      for (int i = 0; i < MB; ++i) {
+        const int mt = u + i * s.units;
+        real[i] = has && mt < s.mtiles;
+        a[i] = in + 16 * (real[i] ? mt : u) + g;
+        pa[i] = 16 * mt + g;
+      }
+      for (int ng = 0; ng < s.groups; ++ng) {
+        float sum[MB][NT][4];
+#pragma unroll
+        for (int i = 0; i < MB; ++i)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[i][n][e] = 0.f;
+        const float4* fg = frag + ng * s.chunks * NT * 32 + lane;
+        if (has) gemm_chunks<MB, NT>(sum, a, off, fg, own_begin, own_end, 1);
+        // the peers' rows of the last layer are in from here on; the
+        // mbarrier is armed again for the rows this buffer gets next
+        if (l > 0 && s.cluster > 1 && r == 0 && ng == 0) {
+          mbar_wait(&bars[l & 1], ((l - 1) >> 1) & 1);
+          if (threadIdx.x == 0) mbar_expect(&bars[l & 1], incoming);
+        }
+        if (has) gemm_chunks<MB, NT>(sum, a, off, fg, peer_begin, peer_end, 1);
+        if (s.ksplit > 1) add_split_sums<MB, NT>(sum, red, ks, s.ksplit, s.mwarps, wm);
+        if (ks != 0 || !has) continue;
+        // C element e of n tile n of tile i: position pa[i] (+ 8 for e >= 2),
+        // channel d0 + 8 * (ng * NT + n) + 2t + (e & 1)
+#pragma unroll
+        for (int i = 0; i < MB; ++i) {
+          if (!real[i]) continue;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int d = 8 * (ng * NT + n) + 2 * t + (e & 1);
+              const int p = pa[i] + (e >> 1) * 8;
+              if (p >= s.valid || d >= dn) continue;
+              const float v = fmaxf(sum[i][n][e], 0.f) * scale;
+              if (last)
+                y[(d0 + d) * s.N + base + p] = v;
+              else
+                buf[out + (d0 + d) * rs + s.lo + p] = v;
+            }
         }
       }
     }
+    if (last) break;
+    // this block's outputs are in, every read of its input is done, and
+    // the bulk copies (the async proxy) see the outputs
+    if (s.cluster > 1) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    float* t = in;
-    in = out;
-    out = t;
+    if (s.cluster > 1) {
+      // this block's rows, live lanes and halo, into its peers' buffers, one
+      // bulk copy a row and peer, completing on the peer's mbarrier; the
+      // float4 past the halo carries an unstaged entry that no written
+      // position reads.  A peer's rows arrive only once it has read its
+      // last input, and it sends them only after these came in.
+      for (int i = threadIdx.x; i < (s.cluster - 1) * dn; i += blockDim.x) {
+        const int q = 1 + i / dn, d = i - (q - 1) * dn;
+        copy_to_peer(buf + out + (d0 + d) * rs, &bars[(l + 1) & 1], (rank + q) % s.cluster,
+                     16u * row4);
+      }
+    }
   }
-  // the masked lanes of every channel
-  const int pad = frame - valid;
-  for (int i = threadIdx.x; i < C * pad; i += kThreads) {
-    const int c = i / pad;
-    y[c * N + base + valid + (i - c * pad)] = 0.f;
-  }
+  // the peers have taken this block's last rows before it exits
+  if (s.cluster > 1 && s.depth > 1) cluster.sync();
 }
 
-template <int K>
-int launch_stack(const float* x, const float* w, float* y, int C, long long N, int frame,
-                 int valid, int lo, int depth, long long wj, long long wc, long long wd,
-                 float scale, cudaStream_t stream) {
-  const int groups = (C + 3) / 4;
-  const int xrow = valid + K - 1;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(C) * K * groups * 4 +
-                                       2 * (static_cast<size_t>(C) * xrow + kSlack));
-  cudaError_t err = cudaFuncSetAttribute(freq_conv_stack_kernel<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// The dynamic shared memory each stack instantiation has been allowed, per device.
+int g_stack_smem_set[kMaxDevices][kMaxNT + 1][2];
+
+template <int NT, int MB>
+cudaError_t allow_stack_smem(int device, int smem) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int& set = g_stack_smem_set[device][NT][MB - 1];
+  if (smem <= set) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      freq_conv_stack_kernel<NT, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) set = smem;
+  return err;
+}
+
+cudaLaunchConfig_t stack_config(int grid, int threads, int smem, int cluster, cudaStream_t stream,
+                                cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int NT, int MB>
+int launch_stack(const float* x, const float* w, float* y, const long long* f, int depth,
+                 int device, float scale, cudaStream_t stream) {
+  const int smem = static_cast<int>(f[sSmemBytes]);
+  cudaError_t err = allow_stack_smem<NT, MB>(device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  freq_conv_stack_kernel<K><<<static_cast<unsigned>(N / frame), kThreads, smem, stream>>>(
-      x, w, y, C, N, frame, valid, lo, depth, wj, wc, wd, scale);
+  Stack s;
+  s.N = f[sN], s.wj = f[sWj], s.wc = f[sWc], s.wd = f[sWd];
+  s.C = static_cast<int>(f[sC]);
+  s.K = static_cast<int>(f[sTaps]);
+  s.frame = static_cast<int>(f[sFrame]);
+  s.valid = static_cast<int>(f[sValid]);
+  s.lo = static_cast<int>(f[sLo]);
+  s.depth = depth;
+  s.cluster = static_cast<int>(f[sCluster]);
+  s.tiles = static_cast<int>(f[sTiles]);
+  s.groups = static_cast<int>(f[sGroups]);
+  s.mtiles = static_cast<int>(f[sMtiles]);
+  s.units = static_cast<int>(f[sUnits]);
+  s.mwarps = static_cast<int>(f[sMwarps]);
+  s.rounds = static_cast<int>(f[sRounds]);
+  s.ksplit = static_cast<int>(f[sKSplit]);
+  s.chunks = static_cast<int>(f[sChunks]);
+  s.row_stride = static_cast<int>(f[sRowStride]);
+  s.buf_floats = static_cast<int>(f[sBufFloats]);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = stack_config(static_cast<int>(f[sGrid]),
+                                              static_cast<int>(f[sThreads]), smem, s.cluster,
+                                              stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, freq_conv_stack_kernel<NT, MB>, x, w, y, s, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT, int MB>
+int stack_occupancy(int device, int threads, int smem, int cluster, int* blocks, int* clusters) {
+  cudaError_t err = allow_stack_smem<NT, MB>(device, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, freq_conv_stack_kernel<NT, MB>,
+                                                      threads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = stack_config(cluster, threads, smem, cluster, 0, &attr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(clusters, freq_conv_stack_kernel<NT, MB>, &cfg));
 }
 
 }  // namespace
@@ -699,25 +959,58 @@ extern "C" int freq_conv_blocks_per_sm(int nt, int mb, int device, int threads, 
 }
 
 // `depth` chained layers on `stream`: x, y [C, N] contiguous, w [K, C, C]
-// with element strides (wj, wc, wd).  Needs N % frame == 0, lo <= frame -
-// valid and valid + K - 1 - lo <= frame, so that after layer 1 every halo
-// lane is a masked lane.  Returns the CUDA error code of the launch.
-extern "C" int freq_conv_stack_forward(const float* x, const float* w, float* y, int C,
-                                       long long N, int frame, int valid, int k, int lo,
-                                       int depth, long long wj, long long wc, long long wd,
-                                       float scale, void* stream) {
-  if (C < 1 || frame < 1 || N < frame || N % frame != 0 || valid < 1 || depth < 1 || lo < 0 ||
-      lo > k - 1 || lo > frame - valid || valid + k - 1 - lo > frame)
+// through its strides.  `geom` is a host array of sFields int64 (see
+// StackField), `nt` the n8 tiles of a pass (1..4), `mb` the m16 tiles a
+// warp (1, or 2 with nt <= 2).  The geometry needs N % frame == 0, lo <=
+// frame - valid and valid + K - 1 - lo <= frame, so that after layer 1
+// every halo lane is a masked lane.  Returns the CUDA error code of the
+// launch (a cluster the card refuses included); never synchronises.
+extern "C" int freq_conv_stack_forward(const float* x, const float* w, float* y,
+                                       const long long* geom, int nt, int mb, int depth,
+                                       int device, float scale, void* stream) {
+  const long long* f = geom;
+  const long long C = f[sC], K = f[sTaps], frames = f[sN] / (f[sFrame] > 0 ? f[sFrame] : 1);
+  const long long red = (f[sKSplit] - 1) * f[sMwarps] * mb * nt * 4 * 32;
+  const long long need =
+      4 * (4 * f[sGroups] * f[sChunks] * nt * 32 + 8 * f[sChunks] + 2 * f[sBufFloats] + red) + 16;
+  if (C < 1 || K < 1 || f[sFrame] < 1 || f[sN] < f[sFrame] || f[sN] % f[sFrame] != 0 ||
+      f[sValid] < 1 || f[sValid] > f[sFrame] || depth < 1 || f[sLo] < 0 || f[sLo] > K - 1 ||
+      f[sLo] > f[sFrame] - f[sValid] || f[sValid] + K - 1 - f[sLo] > f[sFrame] ||
+      f[sCluster] < 1 || f[sCluster] > kStackMaxCluster || f[sGrid] != f[sCluster] * frames ||
+      f[sGrid] > 0x7fffffffLL || f[sTiles] < 1 || f[sGroups] < 1 ||
+      nt * f[sGroups] < f[sTiles] || 8 * f[sCluster] * f[sTiles] < C ||
+      8 * (f[sCluster] - 1) * f[sTiles] >= C || mb < 1 || mb > 2 || (mb == 2 && nt > 2) ||
+      16 * f[sMtiles] < f[sValid] || f[sUnits] * mb < f[sMtiles] || f[sUnits] > f[sMtiles] ||
+      f[sMwarps] < 1 || f[sRounds] * f[sMwarps] < f[sUnits] || f[sKSplit] < 1 ||
+      f[sMwarps] * f[sKSplit] > kStackMaxWarps ||
+      f[sThreads] != 32 * f[sMwarps] * f[sKSplit] || 8 * f[sChunks] < C * K ||
+      f[sRowStride] < 16 * f[sMtiles] + K - 1 || f[sBufFloats] < C * f[sRowStride] ||
+      f[sSmemBytes] < need)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-#define FREQ_CONV_STACK_CASE(K) \
-  case K: return launch_stack<K>(x, w, y, C, N, frame, valid, lo, depth, wj, wc, wd, scale, s);
-    FREQ_CONV_STACK_CASE(1) FREQ_CONV_STACK_CASE(2) FREQ_CONV_STACK_CASE(3)
-    FREQ_CONV_STACK_CASE(4) FREQ_CONV_STACK_CASE(5) FREQ_CONV_STACK_CASE(6)
-    FREQ_CONV_STACK_CASE(7) FREQ_CONV_STACK_CASE(8) FREQ_CONV_STACK_CASE(9)
-    FREQ_CONV_STACK_CASE(10) FREQ_CONV_STACK_CASE(11) FREQ_CONV_STACK_CASE(12)
-    FREQ_CONV_STACK_CASE(13)
+  switch (nt * 4 + mb - 1) {
+#define FREQ_CONV_STACK_CASE(NT, MB) \
+  case NT * 4 + MB - 1: return launch_stack<NT, MB>(x, w, y, f, depth, device, scale, s);
+    FREQ_CONV_STACK_CASE(1, 1) FREQ_CONV_STACK_CASE(2, 1) FREQ_CONV_STACK_CASE(3, 1)
+    FREQ_CONV_STACK_CASE(4, 1) FREQ_CONV_STACK_CASE(1, 2) FREQ_CONV_STACK_CASE(2, 2)
+#undef FREQ_CONV_STACK_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Blocks of the stack kernel with `nt` n8 tiles a pass and `mb` m16 tiles a
+// warp, `threads` threads and `smem` bytes of dynamic shared memory that one
+// SM of `device` holds, into *blocks, and the clusters of `cluster` blocks
+// the card holds at once, into *clusters (the CUDA occupancy calculator).
+// Returns the CUDA error code.
+extern "C" int freq_conv_stack_occupancy(int nt, int mb, int device, int threads, int smem,
+                                         int cluster, int* blocks, int* clusters) {
+  switch (nt * 4 + mb - 1) {
+#define FREQ_CONV_STACK_CASE(NT, MB)                                                  \
+  case NT * 4 + MB - 1:                                                               \
+    return stack_occupancy<NT, MB>(device, threads, smem, cluster, blocks, clusters);
+    FREQ_CONV_STACK_CASE(1, 1) FREQ_CONV_STACK_CASE(2, 1) FREQ_CONV_STACK_CASE(3, 1)
+    FREQ_CONV_STACK_CASE(4, 1) FREQ_CONV_STACK_CASE(1, 2) FREQ_CONV_STACK_CASE(2, 2)
 #undef FREQ_CONV_STACK_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

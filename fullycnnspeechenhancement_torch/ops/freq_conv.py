@@ -23,11 +23,14 @@ dimension order.
 lanes, the first `valid` of them live): circular over N, with the mask,
 ReLU and `scale` after each layer.
 
-`freq_conv`'s kernel is a 3xTF32 tensor-core GEMM per tile of positions;
-`freq_conv_plan` says how it is launched (tile, items, grid, staging
-layout, shared memory), and `tap_offsets` gives the offset table through
-which it reads its A operand.  The wrapper caches the plan per geometry,
-so a call does its checks, one `torch.empty` and the launch.
+Both kernels are 3xTF32 tensor-core GEMMs.  `freq_conv_plan` says how
+`freq_conv` is launched (tile, items, grid, staging layout, shared
+memory), and `tap_offsets` gives the offset table through which it reads
+its A operand.  `stack_plan` says how the chain is launched: a cluster of
+blocks a frame, each with its share of the output channels, exchanging
+each layer's rows through distributed shared memory.  The wrappers cache
+the plans per geometry, so a call does its checks, one `torch.empty` and
+the launch.
 
 Each wrapper runs its plain torch version on a CPU tensor and launches its
 kernel (building it on first use) on a CUDA tensor, or raises; it never
@@ -49,7 +52,6 @@ from fullycnnspeechenhancement_torch.ops import build
 MAX_K = 13  # taps the kernels take
 SMEM_BYTES = 232_448  # the most shared memory one Hopper block can use
 SM_SMEM_BYTES = 233_472  # shared memory of one SM; each block also takes 1 KiB
-SLACK = 4  # floats after the last staged row of freq_conv_stack (csrc kSlack)
 # freq_conv's kernel (csrc/freq_conv.cu): a warp per m16 tile of positions
 # (or PAIR of them, sharing each B fragment, on tiles of PAIR_MTILES or
 # more and fewer than MAX_NT n8 tiles) and K split, at most MAX_WARPS m16
@@ -68,6 +70,17 @@ SPLIT_CHUNKS = 2  # k8 chunks a K split keeps at least
 # PERSISTENT_RATIO times.
 PERSISTENT_RATIO = 8
 N_SMS = 132  # an H100 SXM's SMs, for plans made without a card
+# freq_conv_stack's kernel: a cluster of STACK_CLUSTER blocks a frame (each
+# its share of the output channels' n8 tiles, where C has more than one;
+# doubled up to MAX_STACK_CLUSTER where a block's share does not fit),
+# STACK_MB m16 tiles a warp (only with at most 2 n8 tiles a pass), which
+# share each B fragment load, and STACK_KSPLIT K splits, at most
+# STACK_MAX_WARPS warps a block.
+STACK_CLUSTER = 2
+MAX_STACK_CLUSTER = 8  # the largest cluster the card takes without opting in
+STACK_MB = 2
+STACK_KSPLIT = 3
+STACK_MAX_WARPS = 18
 TF32_HALF_ULP = 0x1000
 TF32_MASK = -8192  # 0xffffe000 as int32: clears the 13 low mantissa bits
 # The flat roll layout of the probes: 129 live bins in frames of 256 lanes.
@@ -308,6 +321,112 @@ def freq_conv_plan(
     )
 
 
+class StackPlan(NamedTuple):
+    """How `freq_conv_stack` launches its kernel on one geometry.
+
+    Each of the `frames` frames is run by a cluster of `cluster` blocks
+    (`grid` blocks in all); block rank r computes the output channels of
+    n8 tiles [r * tiles, (r + 1) * tiles), `nt` a pass in `groups` passes,
+    and writes them into its own buffers and its peer's.  A frame's
+    `mtiles` m16 tiles of positions are `units` units of `mb` tiles (u,
+    u + units, ...), and warp (wm, ks) of the block's `mwarps` x `ksplit`
+    computes units wm, wm + mwarps, ... (`rounds` of them) over K split
+    ks.  A buffer holds C channel-major rows of `row_stride` floats (`span`
+    of them read); `smem_bytes` of shared memory a block."""
+
+    cluster: int
+    frames: int
+    grid: int
+    tiles: int
+    nt: int
+    groups: int
+    mtiles: int
+    mb: int
+    units: int
+    mwarps: int
+    rounds: int
+    ksplit: int
+    chunks: int
+    row_stride: int
+    span: int
+    buf_floats: int
+    smem_bytes: int
+    blocks_per_sm: int
+    clusters_on_card: Optional[int]
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.mwarps * self.ksplit
+
+    def padded_macs(self, depth: int) -> int:
+        """Multiply-adds the kernel's m16n8k8 tiles compute in a chain of
+        `depth` layers (each in three TF32 products)."""
+        per_block = self.units * self.mb * M_TILE * self.chunks * K_CHUNK * self.groups * self.nt * N_TILE
+        return depth * self.grid * per_block
+
+
+def stack_plan(
+    C: int, N: int, K: int, *, frame: int = FRAME, valid: int = VALID, occupancy=None,
+) -> StackPlan:
+    """The launch of `freq_conv_stack` on x [C, N] and w [K, C, C], from the
+    module constants (STACK_CLUSTER, STACK_MB, STACK_KSPLIT).
+
+    - Clusters: one frame a cluster of STACK_CLUSTER blocks, each with an
+      equal share of C's n8 tiles (fewer blocks where C has fewer tiles:
+      one block at C <= 8).  At roll2's shape (C = 32, 64 frames) that is
+      128 blocks of 2 n8 tiles.  Where a block's share of the split weights
+      and its two buffers outgrow its shared memory (C > 50 at K = 11), the
+      cluster doubles, up to MAX_STACK_CLUSTER, so the chain takes every C
+      that the float32 SIMT design took.
+    - Warps: one per unit of STACK_MB m16 tiles, times STACK_KSPLIT K
+      splits of SPLIT_CHUNKS chunks or more, at most STACK_MAX_WARPS; past
+      that, warps take several units.  129 live bins are 9 m16 tiles: 5
+      pairs (the tenth tile computed and not written) times 3 K splits, 15
+      warps, ran 5% faster on the H100 than 9 single tiles times 2 splits
+      (chip_smoke.py phase 14), though they compute 11% more products.
+    - `occupancy(nt, mb, threads, smem_bytes, cluster)` gives the card's
+      (blocks per SM, clusters it holds at once); without it the plan models
+      blocks per SM from shared memory and threads.
+
+    Raises ValueError where the kernel cannot run the geometry."""
+    chunks = -(-C * K // K_CHUNK)
+    n_tiles = -(-C // N_TILE)
+    mtiles = -(-valid // M_TILE)
+    span = M_TILE * mtiles + K - 1
+    row_stride = _stride_at_least(span, (8, 24))
+    buf_floats = C * row_stride
+    want = max(1, STACK_CLUSTER)
+    while True:
+        tiles = -(-n_tiles // want)
+        cluster = -(-n_tiles // tiles)  # every block has a tile
+        groups = -(-tiles // MAX_NT)
+        nt = -(-tiles // groups)
+        mb = max(1, min(STACK_MB, mtiles)) if nt <= 2 else 1
+        units = -(-mtiles // mb)
+        mwarps = min(units, STACK_MAX_WARPS)
+        ksplit = max(1, min(STACK_KSPLIT, STACK_MAX_WARPS // mwarps, chunks // SPLIT_CHUNKS))
+        red = (ksplit - 1) * mwarps * mb * nt * 4 * 32
+        # split B fragments, offsets, two buffers, split sums, two mbarriers
+        smem = 4 * (4 * groups * chunks * nt * 32 + chunks * K_CHUNK + 2 * buf_floats + red) + 16
+        if smem <= SMEM_BYTES:
+            break
+        if tiles == 1 or want >= MAX_STACK_CLUSTER:
+            raise ValueError(f"freq_conv_stack: C={C}, K={K}, valid={valid} need {smem} B of shared memory")
+        want *= 2
+    threads = 32 * mwarps * ksplit
+    if occupancy is None:
+        blocks_per_sm, clusters = model_blocks_per_sm(threads, smem), None
+    else:
+        blocks_per_sm, clusters = occupancy(nt, mb, threads, smem, cluster)
+    frames = N // frame
+    return StackPlan(
+        cluster=cluster, frames=frames, grid=cluster * frames, tiles=tiles, nt=nt, groups=groups,
+        mtiles=mtiles, mb=mb, units=units, mwarps=mwarps, rounds=-(-units // mwarps), ksplit=ksplit,
+        chunks=chunks, row_stride=row_stride, span=span, buf_floats=buf_floats, smem_bytes=smem,
+        blocks_per_sm=blocks_per_sm, clusters_on_card=clusters,
+    )
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and load `csrc/freq_conv.cu`."""
     global _lib
@@ -325,10 +444,13 @@ def load_library() -> ctypes.CDLL:
         ]
         lib.freq_conv_stack_forward.restype = ctypes.c_int
         lib.freq_conv_stack_forward.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.freq_conv_stack_occupancy.restype = ctypes.c_int
+        lib.freq_conv_stack_occupancy.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ]
         lib.freq_conv_error_string.restype = ctypes.c_char_p
         lib.freq_conv_error_string.argtypes = [ctypes.c_int]
@@ -401,10 +523,40 @@ def _launch(x_shape, x_stride, w_shape, w_stride, lo, dilation, circular, period
     return _Launch(plan, (ctypes.c_longlong * len(fields))(*fields), y_shape, y_perm)
 
 
+class _StackLaunch(NamedTuple):
+    plan: StackPlan
+    geom: ctypes.Array  # the kernel's StackField array (csrc/freq_conv.cu)
+
+
+@functools.lru_cache(maxsize=256)
+def _stack_launch(C, N, K, frame, valid, w_stride, device: int) -> _StackLaunch:
+    """Plan and kernel arguments of one chain geometry, made once; the
+    card's occupancy is asked here, not on every call."""
+    lib = load_library()
+
+    def card_occupancy(nt, mb, threads, smem_bytes, cluster):
+        blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.freq_conv_stack_occupancy(nt, mb, device, threads, smem_bytes, cluster,
+                                               ctypes.byref(blocks), ctypes.byref(clusters))
+        _raise_on(lib, "freq_conv_stack occupancy query", rc)
+        return blocks.value, clusters.value
+
+    plan = stack_plan(C, N, K, frame=frame, valid=valid, occupancy=card_occupancy)
+    fields = [
+        C, N, frame, valid, K, (K - 1) // 2, *w_stride, plan.cluster, plan.tiles, plan.groups,
+        plan.mtiles, plan.units, plan.mwarps, plan.rounds, plan.ksplit, plan.chunks,
+        plan.row_stride, plan.buf_floats, plan.grid, plan.threads, plan.smem_bytes,
+    ]
+    return _StackLaunch(plan, (ctypes.c_longlong * len(fields))(*fields))
+
+
 def replan() -> None:
     """Forget the plans cached per geometry: the next call of each plans
-    anew from the module's constants (PAIR_MTILES, PERSISTENT_RATIO, ...)."""
+    anew from the module's constants (PAIR_MTILES, PERSISTENT_RATIO,
+    STACK_CLUSTER, ...)."""
     _launch.cache_clear()
+    _stack_launch.cache_clear()
 
 
 def launch_plan(x: torch.Tensor, w: torch.Tensor, *, lo: Optional[int] = None, dilation: int = 1,
@@ -457,20 +609,7 @@ def freq_conv(
     return y
 
 
-def freq_conv_stack(
-    x: torch.Tensor, w: torch.Tensor, depth: int, *, frame: int = FRAME, valid: int = VALID,
-    scale: float = 1.0,
-) -> torch.Tensor:
-    """`depth` chained layers on the flat roll layout: x [C, N] (contiguous),
-    w [K, C, C] (any strides) -> [C, N] contiguous.  Each layer is the TF
-    SAME tap window (lo = (K - 1) // 2) circular over N, then masks lanes
-    n % frame >= valid to 0, applies ReLU and multiplies by `scale`.
-
-    A CPU tensor runs `freq_conv_stack_plain`.  A CUDA tensor launches the
-    CUDA kernel or raises; it never falls back to the plain version."""
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return freq_conv_stack_plain(x, w, depth, frame=frame, valid=valid, scale=scale)
-    _check_cuda("freq_conv_stack", x, w)
+def _check_stack(x: torch.Tensor, w: torch.Tensor, depth: int, frame: int, valid: int) -> None:
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("freq_conv_stack takes a contiguous [C, N] tensor")
     C, N = x.shape
@@ -487,17 +626,47 @@ def freq_conv_stack(
             f"freq_conv_stack: taps [-{lo}, {K - 1 - lo}] must fall in the masked lanes of a frame "
             f"({frame} lanes, {valid} live)"
         )
-    c4 = (C + 3) // 4 * 4
-    smem = 4 * (C * K * c4 + 2 * (C * (valid + K - 1) + SLACK))
-    if smem > SMEM_BYTES:
-        raise ValueError(f"freq_conv_stack: C={C}, K={K} need {smem} B of shared memory")
+
+
+def stack_launch_plan(x: torch.Tensor, w: torch.Tensor, *, frame: int = FRAME,
+                      valid: int = VALID) -> StackPlan:
+    """The plan `freq_conv_stack` launches on x and w: on CUDA tensors the
+    one it uses (the card's occupancy), on CPU tensors the one it would use
+    on an H100 (occupancy modelled)."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        _check_stack(x, w, 1, frame, valid)
+        return stack_plan(x.shape[0], x.shape[1], w.shape[0], frame=frame, valid=valid)
+    _check_cuda("freq_conv_stack", x, w)
+    _check_stack(x, w, 1, frame, valid)
+    return _stack_launch(x.shape[0], x.shape[1], w.shape[0], frame, valid, w.stride(), x.device.index).plan
+
+
+def freq_conv_stack(
+    x: torch.Tensor, w: torch.Tensor, depth: int, *, frame: int = FRAME, valid: int = VALID,
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """`depth` chained layers on the flat roll layout: x [C, N] (contiguous),
+    w [K, C, C] (any strides) -> [C, N] contiguous.  Each layer is the TF
+    SAME tap window (lo = (K - 1) // 2) circular over N, then masks lanes
+    n % frame >= valid to 0, applies ReLU and multiplies by `scale`.
+
+    A CPU tensor runs `freq_conv_stack_plain`.  A CUDA tensor launches the
+    CUDA kernel (`stack_plan` says how) or raises; it never falls back to
+    the plain version."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return freq_conv_stack_plain(x, w, depth, frame=frame, valid=valid, scale=scale)
+    _check_cuda("freq_conv_stack", x, w)
+    _check_stack(x, w, depth, frame, valid)
+    C, N = x.shape
+    launch = _stack_launch(C, N, w.shape[0], frame, valid, w.stride(), x.device.index)
     y = torch.empty_like(x)
     global stack_launches
     lib = load_library()
     with torch.cuda.device(x.device):
         rc = lib.freq_conv_stack_forward(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), C, N, frame, valid, K, lo, depth,
-            *w.stride(), scale, torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), ctypes.addressof(launch.geom),
+            launch.plan.nt, launch.plan.mb, depth, x.device.index, scale,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _raise_on(lib, "freq_conv_stack", rc)
     stack_launches += 1

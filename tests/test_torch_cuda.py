@@ -360,8 +360,9 @@ def test_freq_conv_repeats_bit_for_bit_on_cuda(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", [1, 2, 5])
 def test_freq_conv_stack_matches_chained_launches_on_cuda(cuda_device, depth):
-    """The chain in one launch (float32 SIMT) against `depth` launches of
-    freq_conv (3xTF32 tensor cores), and both against the plain version."""
+    """The chain in one launch (3xTF32 tensor cores, a cluster of two blocks
+    a frame) against `depth` launches of freq_conv (3xTF32 tensor cores),
+    and both against the plain version."""
     g = torch.Generator().manual_seed(depth)
     x = torch.rand(32, 8 * 256, generator=g).to(cuda_device)
     w = (0.05 * torch.rand(11, 32, 32, generator=g)).to(cuda_device)
@@ -375,8 +376,137 @@ def test_freq_conv_stack_matches_chained_launches_on_cuda(cuda_device, depth):
     _close_to_plain(got, freq_conv.freq_conv_stack_plain(x, w, depth))
 
 
+@pytest.fixture(params=[2, 1], ids=["cluster2", "cluster1"])
+def stack_cluster(request, monkeypatch):
+    """Both plans of freq_conv_stack: a cluster of two blocks a frame (each
+    half of the output channels), and one block a frame."""
+    monkeypatch.setattr(freq_conv, "STACK_CLUSTER", request.param)
+    freq_conv.replan()
+    yield request.param
+    monkeypatch.undo()
+    freq_conv.replan()
+
+
+def _chain_inputs(C, K, frames, seed, device, layout="plain"):
+    """x in [0, 1) and weights in [0, 1) * 2 / (C K), so each layer keeps
+    the activations' scale; w as [K, C, C] contiguous, or as the probes'
+    strided views: k3's transpose of [K, Cout, Cin], roll2's im2col
+    [Cout, K * Cin] viewed as [K, Cin, Cout]."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(C, frames * 256, generator=g).to(device)
+    w = (2.0 / (C * K) * torch.rand(K, C, C, generator=g)).to(device)
+    if layout == "k3":
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "im2col":
+        w = w.permute(2, 0, 1).reshape(C, K * C).reshape(C, K, C).permute(1, 2, 0)
+    return x, w
+
+
+def _chained(x, w, depth, scale=1.0):
+    h = x
+    for _ in range(depth):
+        h = freq_conv.freq_conv(h.t()[None, None], w, circular=True, period=256, valid=129,
+                                relu=True, scale=scale)[0, 0].t()
+    return h
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["float64", "taps", "w_shape", "c_taps", "stack_strided", "stack_halo"])
+@pytest.mark.parametrize("C", [3, 8, 20, 32])
+@pytest.mark.parametrize("K", [1, 5, 11, 13])
+def test_freq_conv_stack_matches_plain_across_the_domain_on_cuda(cuda_device, stack_cluster, C, K):
+    """64 frames, depth 3, im2col-strided weights: one launch, equal to the
+    plain version and to chained freq_conv launches, under both plans (C =
+    3 and 8 have one n8 tile: one block a frame either way)."""
+    x, w = _chain_inputs(C, K, 64, C * 100 + K, cuda_device, "im2col")
+    plan = freq_conv.stack_launch_plan(x, w)
+    assert plan.cluster == min(stack_cluster, -(-C // 8)) and plan.grid == 64 * plan.cluster
+    before = freq_conv.stack_launches
+    got = freq_conv.freq_conv_stack(x, w, 3, scale=0.5)
+    torch.cuda.synchronize()
+    assert freq_conv.stack_launches == before + 1
+    ref = freq_conv.freq_conv_stack_plain(x, w, 3, scale=0.5)
+    assert_live(ref)
+    _close_to_plain(got, ref)
+    _close_to_plain(got, _chained(x, w, 3, scale=0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["plain", "k3", "im2col"])
+@pytest.mark.parametrize("depth", [1, 16])
+def test_freq_conv_stack_deep_chains_on_cuda(cuda_device, stack_cluster, layout, depth):
+    """roll2's shape (C = 32, 64 frames, K = 11) at depth 1 and 16, each
+    weight layout, both plans."""
+    x, w = _chain_inputs(32, 11, 64, depth, cuda_device, layout)
+    got = freq_conv.freq_conv_stack(x, w, depth)
+    ref = freq_conv.freq_conv_stack_plain(x, w, depth)
+    assert_live(ref)
+    _close_to_plain(got, ref)
+    _close_to_plain(got, _chained(x, w, depth))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb,ksplit", [(1, 1), (1, 2), (2, 1), (2, 2)])
+def test_freq_conv_stack_other_warp_plans_on_cuda(cuda_device, monkeypatch, mb, ksplit):
+    """One m16 tile a warp, fewer K splits, no K split, at roll2's shape."""
+    monkeypatch.setattr(freq_conv, "STACK_MB", mb)
+    monkeypatch.setattr(freq_conv, "STACK_KSPLIT", ksplit)
+    freq_conv.replan()
+    try:
+        x, w = _chain_inputs(32, 11, 64, 7, cuda_device, "im2col")
+        plan = freq_conv.stack_launch_plan(x, w)
+        assert (plan.mb, plan.ksplit, plan.cluster) == (mb, ksplit, 2)
+        _close_to_plain(freq_conv.freq_conv_stack(x, w, 4), freq_conv.freq_conv_stack_plain(x, w, 4))
+    finally:
+        monkeypatch.undo()
+        freq_conv.replan()
+
+
+@pytest.mark.cuda
+def test_freq_conv_stack_repeats_bit_for_bit_on_cuda(cuda_device, stack_cluster):
+    x, w = _chain_inputs(32, 11, 64, 3, cuda_device, "im2col")
+    assert torch.equal(freq_conv.freq_conv_stack(x, w, 16), freq_conv.freq_conv_stack(x, w, 16))
+
+
+@pytest.mark.cuda
+def test_freq_conv_stack_refused_cluster_raises_and_launches_nothing(cuda_device, monkeypatch):
+    """A cluster of 16 blocks (C = 128 has 16 n8 tiles), past the 8 the card
+    takes without a non-portable opt-in: the card refuses it already in
+    the occupancy query (cudaOccupancyMaxActiveClusters) that plans the
+    launch, before the kernel is launched (whose C entry refuses more
+    than 8 blocks too).  The call raises, nothing is counted and nothing
+    falls back."""
+    monkeypatch.setattr(freq_conv, "STACK_CLUSTER", 16)
+    freq_conv.replan()
+    try:
+        x, w = _chain_inputs(128, 1, 4, 0, cuda_device)
+        before = freq_conv.stack_launches
+        with pytest.raises(RuntimeError, match="freq_conv_stack"):
+            freq_conv.freq_conv_stack(x, w, 2)
+        assert freq_conv.stack_launches == before
+    finally:
+        monkeypatch.undo()
+        freq_conv.replan()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K", [(60, 11), (56, 13), (144, 1), (51, 11)])
+def test_freq_conv_stack_wide_channels_grow_the_cluster_on_cuda(cuda_device, C, K):
+    """The widest C the float32 SIMT design took: a cluster of 2 does not
+    fit them, so the plan runs 3 to 8 blocks a frame, each writing every
+    peer."""
+    x, w = _chain_inputs(C, K, 8, C + K, cuda_device, "k3")
+    plan = freq_conv.stack_launch_plan(x, w)
+    assert plan.cluster > 2 and plan.smem_bytes <= freq_conv.SMEM_BYTES
+    got = freq_conv.freq_conv_stack(x, w, 3)
+    ref = freq_conv.freq_conv_stack_plain(x, w, 3)
+    assert_live(ref)
+    _close_to_plain(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bad", ["float64", "taps", "w_shape", "c_taps", "stack_strided", "stack_halo", "stack_smem"]
+)
 def test_freq_conv_raises_instead_of_falling_back(cuda_device, bad):
     x = torch.rand(1, 2, 129, 5, device=cuda_device)
     w = torch.rand(11, 5, 6, device=cuda_device)
@@ -391,6 +521,9 @@ def test_freq_conv_raises_instead_of_falling_back(cuda_device, bad):
                                               torch.rand(13, 316, 1, device=cuda_device)),
         "stack_strided": lambda: freq_conv.freq_conv_stack(xs.t().contiguous().t(), ws, 2),
         "stack_halo": lambda: freq_conv.freq_conv_stack(xs, ws, 2, valid=253),
+        # C = 96 at K = 13: half the split weight fragments outgrow a block
+        "stack_smem": lambda: freq_conv.freq_conv_stack(torch.rand(96, 512, device=cuda_device),
+                                                        torch.rand(13, 96, 96, device=cuda_device), 2),
     }
     before = (freq_conv.launches, freq_conv.stack_launches)
     with pytest.raises(ValueError):
