@@ -11,9 +11,10 @@ for an H100) and `nvcc`.  It imports only the port
   2. builds the CUDA kernels for sm_90a, one `nvcc` per source, started
      together (`ops/csrc/rced_stack.cu`, `ops/csrc/blocked_dw.cu`,
      `ops/csrc/freq_conv.cu`), and prints their ptxas lines and build
-     times; beside them, a probe of mma.sync's TF32 rate (MMA_RATE_SRC),
-     measured once here and used by phases 7 and 11 (both kernels issue
-     mma.sync in 3xTF32);
+     times; beside them the native host runtime (g++, `runtime/*.cc`:
+     decode, resample, mixing, PESQ) and a probe of mma.sync's TF32 rate
+     (MMA_RATE_SRC), measured once here and used by phases 7 and 11 (both
+     kernels issue mma.sync in 3xTF32);
 
   The serving path (the fused inference kernel, `rced_stack`):
   3. builds two V2 inference engines at full width from one npz of random
@@ -37,13 +38,20 @@ for an H100) and `nvcc`.  It imports only the port
 
   The training path (the blocked dW kernel, `blocked_dw`):
   8. writes a corpus (512 speech-like utterances of 6.5-8.0 s, all in the
-     512-frame bucket, and 8 noise recordings of 30 s) and an INI with the
-     TPU training profile's settings in float32 (V2, batch 64,
-     steps_per_call 8, blocked_compute with fb 8, dw_pallas, host loader),
-     2 epochs; runs `cli.train.main(["--cfg", ini])` with the kernel's
-     launch count set to 0 just before and read just after: it must be 14
-     per logged step (16 steps); every loss finite, both epochs'
-     checkpoints written; the last checkpoint then serves one 6 s request
+     512-frame bucket, 8 noise recordings of 30 s, and 64 premixed
+     validation utterances of 2-8 s) and an INI with the TPU training
+     profile's settings in float32 (V2, batch 64, steps_per_call 8,
+     blocked_compute with fb 8, dw_pallas, host loader), 2 epochs,
+     `val_manifest_path` and `valid_every_epochs=2`; runs
+     `cli.train.main(["--cfg", ini])` with the kernel's launch count set to
+     0 just before and read just after: it must be 14 per logged step (16
+     steps); every loss finite, both epochs' checkpoints written; the one
+     validation pass (after epoch 2, in the fork pool while the CUDA
+     context is live) logs `valid_stoi`, `valid_sdr` and `valid_pesq`, and
+     neither `valid_pesq_proxy` nor `valid_score_failures`, scores with the
+     `p862-native` PESQ, never degrades to threads, and writes the 64
+     `_de.wav` files under `<audio_save_path>/1/`; its wall time and
+     audio-s/s are logged; the last checkpoint then serves one 6 s request
      through a fused engine;
   9. parity: two trainers from one numpy initial state on the same 4
      batches of 64 x 8 s, with and without `dw_pallas` (cuDNN autograd):
@@ -94,8 +102,26 @@ for an H100) and `nvcc`.  It imports only the port
      holding all three equal, beside its 3xTF32 bound, the mma.sync floor
      of its launch plan and the padded product ratio; and, at depth 16,
      under one other plan (one block a frame);
- 15. prints a `kernels` JSON line (four kernels), the card line again, and
-     last the line {"ok": true, "device": {...}}.
+
+  The evaluation path (`cli/test`, the fused stack kernel again):
+ 15. writes a test set (256 speech-like utterances of 2-8 s and a noise
+     manifest) and a test INI with the settings of
+     `work/aishell_1/cfg/fully_cnn_test.cfg` (batch 2, snr 0, on-the-fly
+     mixing) for V2 at full width and phase 8's last checkpoint; runs
+     `cli.test.main` with `fused_inference=True` and without, each with
+     `rced_stack`'s launch count set to 0 just before and read just after:
+     one launch per evaluation batch, and none without; logs each run's
+     wall time and audio-s/s, then runs it again under torch.profiler for
+     its device-busy share alone; holds the kernel against its plain
+     version on the card at every (B, T) the fused run gave it, on the
+     first input of each shape (rtol 1e-4, atol 1e-5 * max|plain|); the
+     two runs' printed averages within STOI 1e-4, SDR 1e-2 dB and PESQ
+     1e-2 (the differences are logged), PESQ `p862-native`, 256 `_de.wav`
+     files each;
+ 16. prints a `kernels` JSON line (four kernels; `rced_stack`'s launches
+     are the serving path's and the evaluation path's, each also by
+     path; its max_abs_err covers phases 6, 7 and 15), the card line
+     again, and last the line {"ok": true, "device": {...}}.
 
 Each phase prints its wall time.  Any failed phase raises, so the script
 exits non-zero and prints no last line.  Without CUDA it exits 1 at once.
@@ -126,6 +152,9 @@ B_TRAIN = 64
 N_UTTS = 8 * B_TRAIN
 T_BUCKET = 512
 EPOCHS = 2
+# Validation once, after the last epoch, on N_VAL premixed utterances.
+VALID_EVERY = 2
+N_VAL = 64
 PARITY_STEPS = 4
 # dw_pallas on against off: Adam moments against their global scale after
 # each step, and the params' change over the steps against its norm.
@@ -526,11 +555,13 @@ def noise_like(rng, seconds, sr=SR):
 
 def write_corpus(root: str, rng) -> dict:
     """N_UTTS speech-like clean utterances of 6.5-8.0 s (all in the
-    512-frame bucket), 8 noise recordings of 30 s, and their manifests."""
+    512-frame bucket), 8 noise recordings of 30 s, N_VAL premixed
+    validation utterances of 2-8 s (speech-like plus coloured noise at
+    0 dB), and their manifests."""
     from fullycnnspeechenhancement_torch.data import write_manifest, write_wav
 
     os.makedirs(root, exist_ok=True)
-    clean, noise = [], []
+    clean, noise, val = [], [], []
     for i in range(N_UTTS):
         sig = speech_like(rng, rng.uniform(6.5, 8.0))
         path = os.path.join(root, f"clean_{i}.wav")
@@ -541,17 +572,28 @@ def write_corpus(root: str, rng) -> dict:
         path = os.path.join(root, f"noise_{i}.wav")
         write_wav(path, sig, SR)
         noise.append({"audio_filepath": path, "duration": len(sig) / SR})
-    paths = {"clean": os.path.join(root, "train.clean"), "noise": os.path.join(root, "train.noise")}
+    for i in range(N_VAL):
+        sig = speech_like(rng, rng.uniform(2.0, 8.0))
+        nz = noise_like(rng, len(sig) / SR)
+        mix = sig + nz * np.sqrt((sig ** 2).sum() / (nz ** 2).sum())
+        c, m = os.path.join(root, f"val_{i}.wav"), os.path.join(root, f"val_{i}_in.wav")
+        write_wav(c, sig, SR)
+        write_wav(m, mix, SR)
+        val.append({"clean_audio_filepath": c, "mix_audio_filepath": m, "duration": len(sig) / SR})
+    paths = {k: os.path.join(root, f"train.{k}") for k in ("clean", "noise", "val")}
     write_manifest(paths["clean"], clean)
     write_manifest(paths["noise"], noise)
+    write_manifest(paths["val"], val)
+    paths["val_seconds"] = sum(e["duration"] for e in val)
     return paths
 
 
 def write_train_ini(path: str, root: str, corpus: dict, dw_pallas: bool = True,
                     base_checkpoint: str = "") -> str:
     """The TPU training profile (work/aishell_1/cfg/fully_cnn_train_tpu.cfg)
-    in float32, with dw_pallas, the host loader, no validation manifest,
-    EPOCHS epochs and paths under `root`."""
+    in float32, with dw_pallas, the host loader, EPOCHS epochs, validation
+    every VALID_EVERY epochs on the premixed validation manifest, and paths
+    under `root`."""
     with open(path, "w") as f:
         f.write(
             "[training]\n"
@@ -559,10 +601,12 @@ def write_train_ini(path: str, root: str, corpus: dict, dw_pallas: bool = True,
             f"continue_train={not base_checkpoint}\n"
             f"checkpoints_path={root}/checkpoints\nbase_checkpoint_file={base_checkpoint}\n"
             f"num_iter_print=50\nlog_dir={root}/log\nsteps_per_call=8\n"
+            f"valid_every_epochs={VALID_EVERY}\n"
             "[model]\nnet_arch=RCED\nnet_work=FullyCNNV2\ncompute_dtype=float32\n"
             f"blocked_compute=True\nblocked_fb=8\ndw_pallas={dw_pallas}\n"
             f"[data]\ntrain_manifest_path={corpus['clean']}\n"
             f"train_noise_manifest={corpus['noise']}\n"
+            f"val_manifest_path={corpus['val']}\naudio_save_path={root}/denoise\n"
             "snr=0\nsample_rate=8000\nwindow_ms=32\nstride_ms=16\nuse_device_cache=False\n"
         )
     return path
@@ -632,9 +676,10 @@ def dw_work(shapes, rows: int, nb: int, kb: int, dc: int):
     return flop, nbytes
 
 
-def run_training(dev, tmp: str, rate: float) -> dict:
-    """Phases 8-11: the training path through the dW kernel.  Returns the
-    `blocked_dw` entry of the `kernels` line."""
+def run_training(dev, tmp: str, rate: float):
+    """Phases 8-11: the training path through the dW kernel, with one
+    validation pass.  Returns the `blocked_dw` entry of the `kernels` line
+    and the last checkpoint."""
     from fullycnnspeechenhancement_torch import Config, ModelConfig, load_ini_config
     from fullycnnspeechenhancement_torch.cli import train as train_cli
     from fullycnnspeechenhancement_torch.infer import InferenceEngine
@@ -642,6 +687,8 @@ def run_training(dev, tmp: str, rate: float) -> dict:
     from fullycnnspeechenhancement_torch.models.blocked import _block_index_map, apply_blocked
     from fullycnnspeechenhancement_torch.ops import blocked_dw
     from fullycnnspeechenhancement_torch.train.checkpoint import export_params_npz
+    from fullycnnspeechenhancement_torch.eval.metrics import PESQ
+    from fullycnnspeechenhancement_torch.train import trainer as trainer_mod
     from fullycnnspeechenhancement_torch.train.trainer import Trainer
 
     rng = np.random.default_rng(1)
@@ -652,18 +699,34 @@ def run_training(dev, tmp: str, rate: float) -> dict:
     # -- 8. the training main path ------------------------------------------
     t0 = time.perf_counter()
     corpus = write_corpus(os.path.join(tmp, "corpus"), rng)
-    log(f"corpus: {N_UTTS} utterances and 8 noise recordings in {time.perf_counter() - t0:.1f} s")
+    log(f"corpus: {N_UTTS} utterances, 8 noise recordings and {N_VAL} validation utterances "
+        f"({corpus['val_seconds']:.1f} s) in {time.perf_counter() - t0:.1f} s")
     root = os.path.join(tmp, "train")
     ini = write_train_ini(os.path.join(tmp, "train.cfg"), root, corpus)
+    validations = []
+    real_validate = trainer_mod.Trainer.validate
+
+    def timed_validate(self, loader, epoch, log=None):
+        v0 = time.perf_counter()
+        out = real_validate(self, loader, epoch, log)
+        validations.append((epoch, time.perf_counter() - v0, out))
+        return out
+
     t0 = time.perf_counter()
     blocked_dw.launches = 0
-    trainer = train_cli.main(["--cfg", ini])
+    trainer_mod.Trainer.validate = timed_validate
+    try:
+        trainer = train_cli.main(["--cfg", ini])
+    finally:
+        trainer_mod.Trainer.validate = real_validate
     torch.cuda.synchronize()
     launches = blocked_dw.launches
     main_s = time.perf_counter() - t0
     run_dir = trainer.ckpt.dir
     with open(os.path.join(root, "log", "scalars_RCED_FullyCNNV2.jsonl")) as f:
-        rows = [json.loads(line) for line in f if '"loss"' in line]
+        all_rows = [json.loads(line) for line in f]
+    rows = [r for r in all_rows if "loss" in r]
+    valid = [r for r in all_rows if any(k.startswith("valid_") for k in r)]
     steps = len(rows)
     log(f"training main path: {steps} steps in {main_s:.1f} s, blocked_dw launches {launches}, "
         f"losses {[round(r['loss'], 3) for r in rows]}")
@@ -676,6 +739,28 @@ def run_training(dev, tmp: str, rate: float) -> dict:
     files = sorted(os.listdir(run_dir))
     if files != [f"epoch_{e}.pt" for e in range(EPOCHS)]:
         raise AssertionError(f"checkpoints {files} in {run_dir}")
+    # the validation pass: once, after epoch VALID_EVERY - 1, in the fork
+    # pool (the CUDA context live in the parent), with the native PESQ
+    log(f"validation scalars: {valid}")
+    epochs_validated = [e for e, _, _ in validations]
+    if epochs_validated != [VALID_EVERY - 1] or len(valid) != 1 or valid[0]["epoch"] != VALID_EVERY - 1:
+        raise AssertionError(f"validated after epochs {epochs_validated}, scalars {valid}")
+    keys = sorted(k for k in valid[0] if k != "epoch")
+    if keys != ["valid_pesq", "valid_sdr", "valid_stoi"]:
+        raise AssertionError(f"validation scalars {keys}: want pesq, sdr and stoi, no proxy, no failures")
+    if not all(np.isfinite(valid[0][k]) for k in keys):
+        raise AssertionError(f"a validation score is not finite: {valid[0]}")
+    if trainer.evaluator.scoring != "process":
+        raise AssertionError(f"validation scored in {trainer.evaluator.scoring}: the fork pool broke")
+    implementation = PESQ(sr=SR).implementation
+    if implementation != "p862-native":
+        raise AssertionError(f"PESQ implementation {implementation}, expected p862-native")
+    de = [f for f in os.listdir(os.path.join(root, "denoise", str(VALID_EVERY - 1))) if f.endswith("_de.wav")]
+    if len(de) != N_VAL:
+        raise AssertionError(f"{len(de)} _de.wav files under denoise/{VALID_EVERY - 1}, expected {N_VAL}")
+    val_s = validations[0][1]
+    log(f"validation pass: {N_VAL} utterances ({corpus['val_seconds']:.1f} audio-s) in {val_s:.2f} s, "
+        f"{corpus['val_seconds'] / val_s:.1f} audio-s/s; PESQ {implementation}; {len(de)} _de.wav files")
     last = os.path.join(run_dir, f"epoch_{EPOCHS - 1}.pt")
     engines = [
         InferenceEngine(Config(model=ModelConfig(net_work="FullyCNNV2", fused_inference=fused)),
@@ -873,7 +958,7 @@ def run_training(dev, tmp: str, rate: float) -> dict:
     for tr in trainers.values():
         tr.ckpt.close()
 
-    return {
+    entry = {
         "name": "blocked_dw",
         "route": "cuda",
         "source": "fullycnnspeechenhancement_torch/ops/csrc/blocked_dw.cu",
@@ -894,6 +979,7 @@ def run_training(dev, tmp: str, rate: float) -> dict:
             "mma_sync_floor_ms": floor_ms,
         },
     }
+    return entry, last
 
 
 # -- the kernel-probe path -------------------------------------------------
@@ -1284,6 +1370,155 @@ def run_chain(dev, rate: float) -> dict:
     return out
 
 
+# -- the evaluation path ---------------------------------------------------
+
+
+# cli.test with and without the fused stack: averages within these.
+EVAL_TOL = {"stoi": 1e-4, "sdr": 1e-2, "pesq": 1e-2}
+N_TEST = 256
+
+
+def write_test_set(root: str, rng) -> dict:
+    """N_TEST speech-like clean utterances of 2-8 s and 4 noise recordings
+    of 30 s, and their manifests (the shipped test configs mix on the fly
+    at snr 0)."""
+    from fullycnnspeechenhancement_torch.data import write_manifest, write_wav
+
+    os.makedirs(root, exist_ok=True)
+    clean, noise = [], []
+    for i in range(N_TEST):
+        sig = speech_like(rng, rng.uniform(2.0, 8.0))
+        path = os.path.join(root, f"test_{i}.wav")
+        write_wav(path, sig, SR)
+        clean.append({"audio_filepath": path, "duration": len(sig) / SR})
+    for i in range(4):
+        sig = noise_like(rng, 30.0)
+        path = os.path.join(root, f"test_noise_{i}.wav")
+        write_wav(path, sig, SR)
+        noise.append({"audio_filepath": path, "duration": len(sig) / SR})
+    paths = {"clean": os.path.join(root, "test.clean"), "noise": os.path.join(root, "test.noise")}
+    write_manifest(paths["clean"], clean)
+    write_manifest(paths["noise"], noise)
+    paths["seconds"] = sum(e["duration"] for e in clean)
+    return paths
+
+
+def write_test_ini(path: str, root: str, test_set: dict, checkpoint: str, fused: bool) -> str:
+    """work/aishell_1/cfg/fully_cnn_test.cfg's settings for V2 at full
+    width, with the made-up test set and `checkpoint`."""
+    with open(path, "w") as f:
+        f.write(
+            f"[testing]\nbatch_size=2\ncheckpoint_filepath={checkpoint}\nnum_iter_print=1\n"
+            f"[model]\nnet_arch=RCED\nnet_work=FullyCNNV2\nfused_inference={fused}\n"
+            f"[training]\nlog_dir={root}/log\n"
+            f"[data]\ntest_manifest_path={test_set['clean']}\n"
+            f"test_noise_manifest={test_set['noise']}\nsnr=0\nsample_rate=8000\nnfft=256\n"
+            "feature_dim=129\nwindow_ms=32\nstride_ms=16\nwindows=hanning\n"
+            f"audio_save_path={root}/denoise\n"
+        )
+    return path
+
+
+def run_evaluation(dev, tmp: str, checkpoint: str) -> dict:
+    """Phase 15: `cli.test` on N_TEST utterances from phase 8's last
+    checkpoint, with and without `fused_inference`, each twice.  The first
+    pass is the main path, without a profiler: its wall time and
+    audio-s/s, `rced_stack`'s launches (one per evaluation batch, none
+    without) and, fused, each (B, T) the kernel was given, with the first
+    input of that shape.  The second pass runs under torch.profiler for
+    the device-busy share alone.  Then the kernel against its plain
+    version on those inputs, the two runs' averages within EVAL_TOL, and
+    the PESQ implementation.  Returns the fused main path's launches and
+    the kernel's largest difference from its plain version."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fullycnnspeechenhancement_torch import load_ini_config
+    from fullycnnspeechenhancement_torch.cli import test as test_cli
+    from fullycnnspeechenhancement_torch.data import DataLoader, SpeechDataset
+    from fullycnnspeechenhancement_torch.eval.metrics import PESQ
+    from fullycnnspeechenhancement_torch.ops import rced_stack
+
+    t0 = time.perf_counter()
+    test_set = write_test_set(os.path.join(tmp, "test_set"), np.random.default_rng(4))
+    log(f"test set: {N_TEST} utterances ({test_set['seconds']:.1f} s) in {time.perf_counter() - t0:.1f} s")
+    implementation = PESQ(sr=SR).implementation
+    if implementation != "p862-native":
+        raise AssertionError(f"PESQ implementation {implementation}, expected p862-native")
+    # (B, T) -> (packed stack, first input of that shape) on the fused main path
+    given = {}
+    real_forward = rced_stack.stack_forward
+
+    def recording_forward(packed, x):
+        if (x.shape[0], x.shape[2]) not in given:
+            given[(x.shape[0], x.shape[2])] = (packed, x.clone())
+        return real_forward(packed, x)
+
+    runs = {}
+    for fused in (True, False):
+        root = os.path.join(tmp, f"test_{'fused' if fused else 'cudnn'}")
+        ini = write_test_ini(os.path.join(tmp, f"test_{fused}.cfg"), root, test_set, checkpoint, fused)
+        cfg = load_ini_config(ini)
+        n_batches = len(DataLoader(SpeechDataset.from_config(cfg.data, cfg.dsp, "test"), cfg.dsp,
+                                   cfg.eval.batch_size, bucket_frames=cfg.data.bucket_frames,
+                                   shuffle=False))
+        torch.cuda.synchronize()
+        rced_stack.stack_forward = recording_forward if fused else real_forward
+        try:
+            rced_stack.launches = 0
+            w0 = time.perf_counter()
+            results = test_cli.main(["--cfg", ini])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+            launches = rced_stack.launches
+        finally:
+            rced_stack.stack_forward = real_forward
+        de = [f for f in os.listdir(os.path.join(root, "denoise")) if f.endswith("_de.wav")]
+        log(f"cli.test fused_inference={fused}: {results}; {n_batches} batches, rced_stack launches "
+            f"{launches}; {test_set['seconds']:.1f} audio-s in {wall:.2f} s, "
+            f"{test_set['seconds'] / wall:.1f} audio-s/s; {len(de)} _de.wav files")
+        if launches != (n_batches if fused else 0):
+            raise AssertionError(f"fused_inference={fused}: rced_stack launched {launches} times "
+                                 f"in {n_batches} batches")
+        if sorted(results) != ["pesq", "sdr", "stoi"] or not all(np.isfinite(v) for v in results.values()):
+            raise AssertionError(f"cli.test printed {results}: want finite pesq, sdr and stoi only")
+        if len(de) != N_TEST:
+            raise AssertionError(f"{len(de)} _de.wav files, expected {N_TEST}")
+        runs[fused] = (results, launches)
+        # device activity only: CPU op events of a whole pass take longer to
+        # collect than the pass
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            test_cli.main(["--cfg", ini])
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - w0
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_s = sum(e.time_range.elapsed_us() for e in device) / 1e6
+        log(f"cli.test fused_inference={fused} under torch.profiler: {traced:.2f} s, " + (
+            f"device busy {busy_s:.3f} s in {len(device)} device events, busy share {busy_s / traced:.4f}"
+            if device else "device busy not measured"))
+    # the kernel against its plain version at every shape the fused main
+    # path gave it, on the first input of each
+    if not given:
+        raise AssertionError("the fused main path never called rced_stack.stack_forward")
+    max_err = 0.0
+    for (B, T), (packed, x) in sorted(given.items()):
+        ref = rced_stack.stack_forward_plain(packed, x)
+        scale = ref.abs().max().item()
+        if scale == 0.0:
+            raise AssertionError(f"eval V2 B={B} T={T}: the plain stack is 0 everywhere")
+        e = check_close(f"eval V2 B={B} T={T}", rced_stack.stack_forward(packed, x), ref, 1e-4, 1e-5 * scale)
+        max_err = max(max_err, e)
+        log(f"kernel V2 B={B} T={T} (evaluation input): max abs err vs plain {e:.3e} of max|plain| {scale:.3e}")
+    diffs = {k: abs(runs[True][0][k] - runs[False][0][k]) for k in EVAL_TOL}
+    log(f"cli.test fused against cuDNN: |diff| {diffs} (limits {EVAL_TOL}); PESQ {implementation}")
+    bad = {k: d for k, d in diffs.items() if d > EVAL_TOL[k]}
+    if bad:
+        raise AssertionError(f"cli.test averages differ fused against cuDNN: {bad}")
+    return {"launches": runs[True][1], "max_abs_err": max_err}
+
+
 # The rate of independent mma.sync.m16n8k8 TF32 products when nothing else
 # is issued, A and B from 2 and 8 register sets as in blocked_dw.cu: the
 # most that kernel's instruction could give, beside the data sheet's 495
@@ -1347,10 +1582,12 @@ def mma_sync_tf32_tflops(lib_path: str) -> float:
 
 
 def build_kernels() -> str:
-    """Phase 2: one nvcc per CUDA source, all started together, and the
-    mma.sync rate probe beside them; returns the probe's library."""
+    """Phase 2: one nvcc per CUDA source, all started together, the native
+    runtime's g++ and the mma.sync rate probe beside them; returns the
+    probe's library."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from fullycnnspeechenhancement_torch.data import native
     from fullycnnspeechenhancement_torch.ops import blocked_dw, build, freq_conv, rced_stack
 
     names = ("rced_stack", "blocked_dw", "freq_conv")
@@ -1360,10 +1597,20 @@ def build_kernels() -> str:
         build.build(name)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(names) + 1) as pool:
+    def timed_runtime():
+        t0 = time.perf_counter()
+        native.build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names) + 2) as pool:
         probe = pool.submit(build_mma_rate)
+        runtime = pool.submit(timed_runtime)
         seconds = dict(zip(names, pool.map(timed_build, names)))
         probe_lib = probe.result()
+        runtime_s = runtime.result()
+    if not native.native_available():
+        raise RuntimeError("the native runtime built but does not load")
+    log(f"build: native runtime (g++, fcse_runtime.cc + pesq862.cc) in {runtime_s:.1f} s")
     rced_stack.load_library()
     blocked_dw.load_library()
     freq_conv.load_library()
@@ -1398,16 +1645,22 @@ def main() -> int:
         t0 = time.perf_counter()
         stack_entry = run_serving(dev, tmp, mma_rate)
         phase("serving", t0)
-        dw_entry = run_training(dev, tmp, mma_rate)
-    t0 = time.perf_counter()
-    probe_path = run_probe_path(dev, mma_rate)
-    phase("probe path", t0)
-    t0 = time.perf_counter()
-    v2 = run_v2_layers(dev, stack_entry, mma_rate)
-    phase("freq_conv at V2 width", t0)
-    t0 = time.perf_counter()
-    chain = run_chain(dev, mma_rate)
-    phase("chains", t0)
+        dw_entry, last_checkpoint = run_training(dev, tmp, mma_rate)
+        t0 = time.perf_counter()
+        probe_path = run_probe_path(dev, mma_rate)
+        phase("probe path", t0)
+        t0 = time.perf_counter()
+        v2 = run_v2_layers(dev, stack_entry, mma_rate)
+        phase("freq_conv at V2 width", t0)
+        t0 = time.perf_counter()
+        chain = run_chain(dev, mma_rate)
+        phase("chains", t0)
+        t0 = time.perf_counter()
+        evaluation = run_evaluation(dev, tmp, last_checkpoint)
+        phase("evaluation path", t0)
+    stack_entry["launches_by_path"] = {"serving": stack_entry["launches"], "evaluation": evaluation["launches"]}
+    stack_entry["launches"] += evaluation["launches"]
+    stack_entry["max_abs_err"] = max(stack_entry["max_abs_err"], evaluation["max_abs_err"])
 
     conv_sum, stack_sum = probe_path["summary"]["freq_conv"], probe_path["summary"]["freq_conv_stack"]
     conv_entry = {

@@ -1,5 +1,6 @@
 """Command-line entry points mirroring the reference's scripts, driven by
-the same INI config files.  This package ports `train` and `infer`."""
+the same INI config files.  This package ports `train`, `test`
+and `infer`."""
 
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
 """Train CLI: `python -m fullycnnspeechenhancement_torch.cli.train --cfg <ini>`.
 
 Same surface as the reference's train.py (--cfg, --num-works), wiring
-config -> dataset -> host loader -> Trainer.  Runs on the card; `--device
-cpu` runs on the CPU instead.  The GPU-resident corpus cache
-(`use_device_cache`, ROADMAP.md Queue 1 item 8) and validation
-(`val_manifest_path`, Queue 1 item 7) are not ported yet and raise.
+config -> datasets -> host loaders -> Trainer; a `val_manifest_path`
+gives the Trainer a validation loader.  Runs on the card; `--device cpu`
+runs on the CPU instead.  The GPU-resident corpus cache
+(`use_device_cache`, ROADMAP.md Queue 1 item 8) is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -18,17 +19,12 @@ from fullycnnspeechenhancement_torch.data.loader import DataLoader
 
 
 def build_loaders(config: Config, num_workers: int):
-    """(train_loader, None): the host loader over the train manifest."""
+    """(train_loader, val_loader): host loaders over the train manifest and,
+    when one is configured, the validation manifest (else None)."""
     if config.data.use_device_cache:
         raise NotImplementedError(
             "use_device_cache: the GPU-resident corpus cache is not ported "
             "yet (ROADMAP.md Queue 1 item 8)"
-        )
-    if config.data.val_manifest_path:
-        raise NotImplementedError(
-            f"val_manifest_path={config.data.val_manifest_path}: validation "
-            "(the evaluator and its metrics) is not ported yet (ROADMAP.md "
-            "Queue 1 item 7); leave it empty"
         )
     train_ds = SpeechDataset.from_config(config.data, config.dsp, "train")
     train_loader = DataLoader(
@@ -42,7 +38,19 @@ def build_loaders(config: Config, num_workers: int):
         seed=config.data.seed,
         int16_transport=config.data.int16_transport,
     )
-    return train_loader, None
+    val_loader = None
+    if config.data.val_manifest_path:
+        val_ds = SpeechDataset.from_config(config.data, config.dsp, "val")
+        val_loader = DataLoader(
+            val_ds,
+            config.dsp,
+            config.train.batch_size,
+            bucket_frames=config.data.bucket_frames,
+            shuffle=False,
+            num_workers=num_workers,
+            seed=config.data.seed,
+        )
+    return train_loader, val_loader
 
 
 def main(argv=None):

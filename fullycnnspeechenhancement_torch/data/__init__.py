@@ -2,8 +2,10 @@
 
 The host decodes, resamples and mixes raw waveforms only; all DSP runs on
 the device inside the train step.  Batches are padded to static bucket
-shapes.  The GPU-resident corpus cache (`device_cache.py`) and the native
-runtime (`native.py`) of the JAX package are not ported yet (ROADMAP.md).
+shapes.  `native.py` binds the native host runtime (decode, resample,
+mixing, PESQ), built from `runtime/*.cc` on first use.  The GPU-resident
+corpus cache (`device_cache.py`) of the JAX package is not ported yet
+(ROADMAP.md).
 """
 
 from fullycnnspeechenhancement_torch.data.audio_io import (  # noqa: F401

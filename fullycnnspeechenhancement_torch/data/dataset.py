@@ -9,8 +9,8 @@ and the clean <-> noise pairing is re-drawn per epoch from a numpy
 generator seeded with (seed, epoch), exactly as in the JAX package, so the
 same seed gives the same items.
 
-The native decode/mix path (`use_native`, the JAX package's
-`data/native.py` over `libfcse_runtime.so`) is not ported yet.
+`use_native=True` decodes, resamples and mixes through the native runtime
+(`data/native.py`), which releases the GIL for the whole item.
 """
 
 from __future__ import annotations
@@ -43,14 +43,18 @@ class SpeechDataset:
         host_count: int = 1,
         use_native: bool = False,
     ):
-        if use_native:
-            raise NotImplementedError(
-                "use_native=True: the native decode/mix path (data/native.py) "
-                "is not ported yet (ROADMAP.md Queue 1 item 5, data/native.py)"
-            )
         self.sample_rate = sample_rate
         self.snr_db = snr_db
         self.seed = seed
+        if use_native:
+            from fullycnnspeechenhancement_torch.data import native
+
+            if not native.native_available():
+                raise RuntimeError(
+                    "use_native=True but the native runtime could not be built "
+                    "(g++ and the sources under fullycnnspeechenhancement_torch/runtime)"
+                )
+        self.use_native = use_native
         self.items: List[ManifestEntry] = shard_for_host(
             read_manifest(manifest_path, min_duration, max_duration),
             host_index,
@@ -85,6 +89,8 @@ class SpeechDataset:
     def __getitem__(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
         """-> (mix_waveform, clean_waveform), float32 at self.sample_rate."""
         entry = self.items[index]
+        if self.use_native:
+            return self._getitem_native(index, entry)
         if entry.is_premixed:
             clean, _ = read_wav(entry.clean_audio_filepath, self.sample_rate)
             mix, _ = read_wav(entry.mix_audio_filepath, self.sample_rate)
@@ -98,6 +104,33 @@ class SpeechDataset:
         rng = np.random.default_rng((self.seed, self._epoch, index))
         mix = mix_at_snr(clean, noise, self.snr_db, rng)
         return mix, clean
+
+    def _getitem_native(self, index, entry):
+        """GIL-free decode + resample + mix through the native runtime.  The
+        mixing draws come from the C++ mt19937_64 stream seeded from (seed,
+        epoch, index): the same semantics as the Python path, other draws."""
+        from fullycnnspeechenhancement_torch.data import native
+
+        if entry.is_premixed:
+            clean, sr_c = native.decode_wav(entry.clean_audio_filepath)
+            mix, sr_m = native.decode_wav(entry.mix_audio_filepath)
+            if sr_c != self.sample_rate:
+                clean = native.resample(clean, sr_c, self.sample_rate)
+            if sr_m != self.sample_rate:
+                mix = native.resample(mix, sr_m, self.sample_rate)
+            n = min(len(clean), len(mix))
+            return mix[:n], clean[:n]
+        noise_path = None
+        if self.noise_items is not None:
+            noise_path = self.noise_items[self._noise_assignment[index]].audio_filepath
+        item_seed = (self.seed * 1000003 + self._epoch) * 1000003 + index
+        return native.prepare_item(
+            entry.audio_filepath,
+            noise_path,
+            self.sample_rate,
+            self.snr_db,
+            item_seed & 0xFFFFFFFFFFFFFFFF,
+        )
 
     @classmethod
     def from_config(

@@ -1,3 +1,13 @@
-"""Evaluation.  This slice ports only `AverageMeter` (metrics.py)."""
+"""Evaluation: speech-quality metrics and the batch evaluator
+(`eval/evaluator.py`)."""
 
-from fullycnnspeechenhancement_torch.eval.metrics import AverageMeter  # noqa: F401
+from fullycnnspeechenhancement_torch.eval.metrics import (  # noqa: F401
+    AverageMeter,
+    SDR,
+    STOI,
+    PESQ,
+    stoi,
+    sdr,
+    mos_lqo,
+    mos_lqo_inverse,
+)

@@ -1,4 +1,4 @@
-"""Training engine: epoch loop, checkpointing, telemetry.
+"""Training engine: epoch loop, checkpointing, validation, telemetry.
 
 Counterpart of `fullycnnspeechenhancement_tpu/train/trainer.py` on its
 host-loader, single-device path.  The reference's `FullyCNNTrainer`
@@ -6,7 +6,9 @@ host-loader, single-device path.  The reference's `FullyCNNTrainer`
 train steps on one device (the card unless the caller asks for the CPU)
 with a prefetching loader, a background feeder thread that groups
 same-bucket batches and moves them to the device, one checkpoint per
-epoch, and JSONL scalar telemetry.
+epoch, validation every `valid_every_epochs` epochs when the caller
+passes a validation loader (`eval/evaluator.py`, BN in batch-statistics
+mode as in the reference), and JSONL scalar telemetry.
 
 Hot loop: PyTorch enqueues device work and returns, and the loop never
 reads a per-step scalar.  Metrics accumulate as packed device tensors and
@@ -17,8 +19,7 @@ dispatch runs K optimizer steps (`make_multi_step`).
 
 Not ported yet, and each raises `NotImplementedError` naming its
 ROADMAP.md item: the GPU-resident corpus cache (`use_device_cache`, Queue
-1 item 8), data parallelism (`data_parallel > 1`, item 10) and in-training
-validation (a validation loader, item 7).
+1 item 8) and data parallelism (`data_parallel > 1`, item 10).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 from fullycnnspeechenhancement_torch.config import Config
 from fullycnnspeechenhancement_torch.data.loader import DataLoader, LoaderBatch
 from fullycnnspeechenhancement_torch.device import disable_tf32, resolve_device
+from fullycnnspeechenhancement_torch.eval.evaluator import Evaluator
 from fullycnnspeechenhancement_torch.eval.metrics import AverageMeter
 from fullycnnspeechenhancement_torch.models import get_model
 from fullycnnspeechenhancement_torch.train.checkpoint import (
@@ -100,6 +102,12 @@ class Trainer:
         # advanced on the host so the hot loop never waits on it.
         self._host_step = int(self.state.step)
 
+        # In-training validation runs BN in batch-statistics mode, like the
+        # reference reusing its training graph (Appendix A.8), and never
+        # resets its meters across epochs (Appendix A.11).
+        self.evaluator = Evaluator(config, self.model, bn_training_mode=True, device=self.device)
+        self._valid_meters = {}
+
         self.train_loss = AverageMeter()
         self.data_time = AverageMeter()
         self.step_time = AverageMeter()
@@ -135,6 +143,10 @@ class Trainer:
                     self.state.params[name][k].copy_(v)
         self.state = self.state._replace(bn_state=merged_bn)
         logger.info("warm-started params from %s", path)
+
+    def _log_scalars(self, **kv):
+        with open(self._scalars_path, "a") as f:
+            f.write(json.dumps(kv) + "\n")
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -268,24 +280,23 @@ class Trainer:
         epochs: Optional[int] = None,
         log: Optional[logging.Logger] = None,
     ):
-        if valid_loader is not None:
-            raise NotImplementedError(
-                "in-training validation (the evaluator and its metrics) is not "
-                "ported yet (ROADMAP.md Queue 1 item 7)"
-            )
         log = log or logger
         epochs = epochs if epochs is not None else self.config.train.epochs
         try:
-            self._run_epochs(train_loader, epochs, log)
+            self._run_epochs(train_loader, valid_loader, epochs, log)
         finally:
             # Teardown even when an epoch raises: wait for the checkpoint
-            # writes and stop a running trace.
+            # writes, stop a running trace and release the scoring workers
+            # (the pool is made again if validate() runs later).
             try:
                 self.ckpt.wait()
             finally:
-                self.profiler.close()
+                try:
+                    self.profiler.close()
+                finally:
+                    self.evaluator.close()
 
-    def _run_epochs(self, train_loader, epochs, log):
+    def _run_epochs(self, train_loader, valid_loader, epochs, log):
         K = self._steps_per_call
         flush_every = max(1, self.config.train.num_iter_print)
         n_batches = len(train_loader)
@@ -313,3 +324,28 @@ class Trainer:
                 epoch, epoch_audio_s, wall, epoch_audio_s / max(wall, 1e-9),
             )
             self.ckpt.save(epoch, self.state)
+            if valid_loader is not None and (epoch + 1) % self.config.train.valid_every_epochs == 0:
+                self.validate(valid_loader, epoch, log)
+
+    def validate(self, valid_loader: DataLoader, epoch: int, log=None):
+        """Score the validation set with the current params and BN state
+        (batch statistics; `bn_state` is left as it was), dump its wav
+        triplets under `audio_save_path/<epoch>` and log `valid_*`
+        scalars."""
+        log = log or logger
+        # The checkpoint write first: the scoring pool forks on first use,
+        # and must not fork while the writer thread is busy.
+        self.ckpt.wait()
+        valid_loader.set_epoch(0)  # the same mixing every validation
+        save_dir = os.path.join(self.config.data.audio_save_path, str(epoch))
+        results = self.evaluator.evaluate(
+            valid_loader,
+            self.state.params,
+            self.state.bn_state,
+            save_dir=save_dir,
+            meters=self._valid_meters,
+        )
+        msg = ", ".join(f"{k}={v:.4f}" for k, v in sorted(results.items()))
+        log.info("epoch %d validation: %s", epoch, msg)
+        self._log_scalars(epoch=epoch, **{f"valid_{k}": v for k, v in results.items()})
+        return results

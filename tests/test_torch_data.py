@@ -62,11 +62,6 @@ def test_dataset_items_match_jax(corpus, mode):
             assert got.num_frames(tcfg.DSPConfig(), i) == ref.num_frames(jcfg.DSPConfig(), i)
 
 
-def test_native_path_raises_naming_its_roadmap_item(corpus):
-    with pytest.raises(NotImplementedError, match="data/native.py"):
-        tdata.SpeechDataset(corpus["clean"], corpus["noise"], SR, use_native=True)
-
-
 def test_bucket_sampler_plan_matches_jax(corpus):
     buckets = (64, 128, 256)
     got = tdata.BucketSampler(tdata.SpeechDataset(corpus["clean"], None, SR), tcfg.DSPConfig(),

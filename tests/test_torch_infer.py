@@ -134,3 +134,42 @@ def test_port_imports_no_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, f"{path} imports {name}"
+
+
+_PATH_CALLS = {"join", "Path", "PurePath", "CDLL", "LoadLibrary", "open", "abspath", "realpath", "resolve"}
+
+
+def _path_strings(node):
+    """String constants among the arguments of calls that build or open a
+    path (`os.path.join`, `Path`, `ctypes.CDLL`, `open`, ...) and in the
+    operands of `/` between paths."""
+    for sub in ast.walk(node):
+        parts = []
+        if isinstance(sub, ast.Call):
+            func = sub.func
+            name = func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", "")
+            if name in _PATH_CALLS:
+                parts = list(sub.args) + [k.value for k in sub.keywords]
+        elif isinstance(sub, ast.BinOp) and isinstance(sub.op, ast.Div):
+            parts = [sub.left, sub.right]
+        for part in parts:
+            for c in ast.walk(part):
+                if isinstance(c, ast.Constant) and isinstance(c.value, str):
+                    yield c.value
+
+
+def test_port_builds_no_path_into_the_jax_package():
+    """No port module (nor chip_smoke.py) joins, opens or loads a path into
+    the JAX package's directory: no `"..", "runtime"` join as in JAX
+    `data/native.py`, no `fullycnnspeechenhancement_tpu` in a path, no
+    load of its committed `libfcse_runtime.so`."""
+    sources = list(_port_sources())
+    assert any(p.endswith(os.path.join("data", "native.py")) for p in sources)
+    assert any(p.endswith(os.path.join("eval", "evaluator.py")) for p in sources)
+    assert any(p.endswith(os.path.join("cli", "test.py")) for p in sources)
+    for path in sources:
+        tree = ast.parse(open(path).read(), path)
+        for text in _path_strings(tree):
+            assert text != "..", f"{path} joins '..' into a path"
+            assert "fullycnnspeechenhancement_tpu" not in text, f"{path} builds a path from {text!r}"
+            assert text != "libfcse_runtime.so", f"{path} names the JAX package's library"

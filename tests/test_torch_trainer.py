@@ -151,8 +151,6 @@ def test_warm_start_from_a_port_checkpoint(tmp_path, corpus):
     [
         ("data", "use_device_cache=True", "Queue 1 item 8"),
         ("training", "data_parallel=2", "Queue 1 item 10"),
-        ("data", "val_manifest_path=dev.jsonl", "Queue 1 item 7"),
-        ("data", "use_native=True", "data/native.py"),
         ("model", "compute_dtype=bfloat16", "bf16 training"),
     ],
 )
@@ -162,15 +160,6 @@ def test_unported_options_raise_naming_their_item(tmp_path, corpus, section, lin
     ini = _ini(tmp_path / "x.cfg", corpus, str(tmp_path), **extra)
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["--cfg", ini, "--device", "cpu"])
-
-
-def test_validation_loader_raises(tmp_path, corpus):
-    ini = _ini(tmp_path / "x.cfg", corpus, str(tmp_path))
-    trainer = Trainer(tcfg.load_ini_config(ini), device="cpu")
-    loader = trainer_loader(ini)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        trainer.train(loader, loader)
-    trainer.ckpt.close()
 
 
 def test_trainer_defaults_to_cuda(tmp_path, corpus):
