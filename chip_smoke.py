@@ -12,9 +12,10 @@ for an H100) and `nvcc`.  It imports only the port
      together (`ops/csrc/rced_stack.cu`, `ops/csrc/blocked_dw.cu`,
      `ops/csrc/freq_conv.cu`), and prints their ptxas lines and build
      times; beside them the native host runtime (g++, `runtime/*.cc`:
-     decode, resample, mixing, PESQ) and a probe of mma.sync's TF32 rate
-     (MMA_RATE_SRC), measured once here and used by phases 7 and 11 (both
-     kernels issue mma.sync in 3xTF32);
+     decode, resample, mixing, PESQ) and a probe of mma.sync's TF32 and
+     bf16 rates (MMA_RATE_SRC), measured once here and used by phases 7,
+     7b, 11 and 11c (both kernels issue mma.sync in 3xTF32, and their bf16
+     modes in bf16);
 
   The serving path (the fused inference kernel, `rced_stack`):
   3. builds two V2 inference engines at full width from one npz of random
@@ -35,6 +36,16 @@ for an H100) and `nvcc`.  It imports only the port
      and the floor mma.sync's measured rate sets; prints its launch plan;
      then the stages of one 8 s request, and each request's host time and
      device-busy time (from torch.profiler) through both engines;
+ 7b. the stack's bf16 operand mode, which `fused_inference_forward(dtype=
+     "bfloat16")` reaches (as in JAX, no engine or config routes to it):
+     the three requests through it with its bf16 launch count set to 0
+     just before and read just after (3), each output within 0.05 * max of
+     the float32 fused forward's; the kernel against its plain bf16 mode
+     for V1/V2/V3 at B=2, T=70 and T=45 and at 64 x 8 s (median
+     difference within 1e-6 of max|plain|, none past 2^-6 of it: see
+     BF16_STACK_*), one inner layer at rtol 1e-4, atol 1e-5 * max|plain|;
+     its time at 64 x 8 s beside the 3xTF32 kernel, the plain bf16 mode,
+     cuDNN's stack in bf16, the bf16 bound and mma.sync's bf16 floor;
 
   The training path (the blocked dW kernel, `blocked_dw`):
   8. writes a corpus (512 speech-like utterances of 6.5-8.0 s, all in the
@@ -72,6 +83,24 @@ for an H100) and `nvcc`.  It imports only the port
      with dw_pallas on and off, the device-busy time of one
      steps_per_call=8 dispatch, and which ops launch cuDNN's layout
      conversions in one train step;
+ 11a. a second `cli.train` with the TPU training profile's own dtype,
+     `compute_dtype=bfloat16` (still without its device cache), one epoch
+     on phase 8's corpus with validation after it, the kernel's bf16
+     launch count set to 0 just before and read just after: 14 per step
+     (8 steps), no float32 launch, every loss finite, the checkpoint
+     written, params float32, the validation pass's scores finite;
+ 11b. bf16 parity: two trainers from phase 9's initial state on its 4
+     batches under bf16, with and without dw_pallas: losses within rtol
+     1e-2, Adam's moments within PARITY_MOMENT_TOL_BF16 of their scale;
+     the per-step loss difference from phase 9's float32 run is logged,
+     not gated;
+ 11c. the kernel's bf16 mode against its plain version for V2's 14 layers
+     at 64 x 8 s and at B=3, T=37 (rtol 1e-4, atol 1e-4 * max|plain|),
+     its time over the 14 layers beside the 3xTF32 kernel's, its plain
+     version and `conv2d_weight` on bf16 inputs, its bf16 bound (bytes)
+     and mma.sync's bf16 floor; the bf16 train step with dw_pallas on and
+     off beside phase 11's float32 step, and one bf16 dispatch's
+     device-busy time;
 
   The kernel-probe path (the frequency-conv kernels, `freq_conv` and
   `freq_conv_stack`):
@@ -118,10 +147,12 @@ for an H100) and `nvcc`.  It imports only the port
      two runs' printed averages within STOI 1e-4, SDR 1e-2 dB and PESQ
      1e-2 (the differences are logged), PESQ `p862-native`, 256 `_de.wav`
      files each;
- 16. prints a `kernels` JSON line (four kernels; `rced_stack`'s launches
-     are the serving path's and the evaluation path's, each also by
-     path; its max_abs_err covers phases 6, 7 and 15), the card line
-     again, and last the line {"ok": true, "device": {...}}.
+ 16. prints a `kernels` JSON line (six entries: `rced_stack` and
+     `blocked_dw` in float32 and in bf16, each with its "dtype", then
+     `freq_conv` and `freq_conv_stack`; the float32 `rced_stack`'s
+     launches are the serving path's and the evaluation path's, each also
+     by path, and its max_abs_err covers phases 6, 7 and 15), the card
+     line again, and last the line {"ok": true, "device": {...}}.
 
 Each phase prints its wall time.  Any failed phase raises, so the script
 exits non-zero and prints no last line.  Without CUDA it exits 1 at once.
@@ -129,6 +160,7 @@ exits non-zero and prints no last line.  Without CUDA it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -140,9 +172,10 @@ import numpy as np
 import torch
 
 # H100 SXM data-sheet peaks (dense): float32 without tensor cores, TF32
-# on them.
+# and bf16 on them.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 MAIN_TOL = 1e-4  # engine outputs: atol = MAIN_TOL * max|reference|
 SR = 8000
@@ -161,6 +194,23 @@ PARITY_STEPS = 4
 PARITY_MOMENT_TOL = 1e-3
 PARITY_UPDATE_TOL = 0.2
 DW_TOL = 1e-4  # blocked_dw against plain: rtol, and atol = DW_TOL * max|plain|
+# bf16 training (phases 11a-11c): one epoch, validation after it.
+EPOCHS_BF16 = 1
+# dw_pallas on against off under bf16: losses (rtol) and Adam's moments
+# against their global scale after each step.  Both round dW to bf16, the
+# kernel from float32 sums and cuDNN from its own, so a dW differs by one
+# bf16 ulp (at most 2^-8 of the largest) where its sum lies near a
+# rounding boundary, and later steps' forward passes drift from there.
+# Measured on an H100: at most 6.4e-4 of the moments' scale over 4 steps.
+PARITY_LOSS_RTOL_BF16 = 1e-2
+PARITY_MOMENT_TOL_BF16 = 2.0**-8
+# The bf16 stack against its plain bf16 mode (tests/test_torch_cuda.py,
+# BF16_STACK_*): each layer rounds its float32 input to bf16, and where the
+# two float32 sums differ in the last bit at a rounding boundary an
+# operand differs by one bf16 ulp: the median difference stays at
+# float32's level, no difference past 2^-6 of max|plain|.
+BF16_STACK_MEDIAN = 1e-6
+BF16_STACK_MAX = 2.0**-6
 # freq_conv / freq_conv_stack against plain (and cuDNN): rtol, and atol =
 # PROBE_TOL * max|plain|; float32 sums of up to 352 terms in another order
 # (freq_conv's products in 3xTF32, each within about 2^-21 of float32's).
@@ -213,6 +263,23 @@ def check_close(name, got, ref, rtol, atol) -> float:
             f"{name}: {int(bad.sum())} elements off, max abs err {err.max().item():.3e} "
             f"(rtol {rtol}, atol {atol:.3e})"
         )
+    return err.max().item()
+
+
+def check_bf16_stack(name, got, ref) -> float:
+    """Raise unless the bf16 stack `got` is within BF16_STACK_MAX of
+    max|ref| everywhere and its median difference over the elements where
+    `ref` is not 0 within BF16_STACK_MEDIAN of it; returns the largest
+    absolute difference."""
+    got, ref = got.double(), ref.double()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}, or non-finite values")
+    scale = ref.abs().max().item()
+    err = (got - ref).abs()
+    median = err[ref != 0].median().item()
+    if err.max().item() > BF16_STACK_MAX * scale or median > BF16_STACK_MEDIAN * scale:
+        raise AssertionError(f"{name}: max abs err {err.max().item():.3e}, median {median:.3e} "
+                             f"of max|plain| {scale:.3e}")
     return err.max().item()
 
 
@@ -350,9 +417,10 @@ def stack_work(packed, B, T):
     return flop, nbytes
 
 
-def run_serving(dev, tmp: str, mma_rate: float) -> dict:
-    """Phases 3-7: the serving path through the fused kernel.  Returns the
-    `rced_stack` entry of the `kernels` line."""
+def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float):
+    """Phases 3-7b: the serving path through the fused kernel, then the
+    stack's bf16 mode.  Returns the `rced_stack` entries of the `kernels`
+    line, float32 and bf16."""
     from fullycnnspeechenhancement_torch import Config, ModelConfig
     from fullycnnspeechenhancement_torch.data.audio_io import read_wav, write_wav
     from fullycnnspeechenhancement_torch.infer import InferenceEngine
@@ -514,8 +582,9 @@ def run_serving(dev, tmp: str, mma_rate: float) -> dict:
                 f"mean {mean:.3f} (n=40), {len(sig) / 8000 / med * 1e3:.1f} audio-s/s; "
                 f"traced {traced_ms:.3f} ms, {busy}")
 
-    return {
+    entry = {
         "name": "rced_stack",
+        "dtype": "float32",
         "route": "cuda",
         "source": "fullycnnspeechenhancement_torch/ops/csrc/rced_stack.cu",
         "replaces": "fullycnnspeechenhancement_tpu/ops/pallas_rced.py:135",
@@ -524,7 +593,8 @@ def run_serving(dev, tmp: str, mma_rate: float) -> dict:
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations, 3xTF32 tensor cores" if t_ops >= t_bytes else "bytes",
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_note": "3xTF32 on the tensor cores at the data sheet's TF32 rate",
         # No single PyTorch call computes the stack; the cuDNN
         # layer-by-layer stack (14 convs plus adds) is its own key.
         "library_ms": None,
@@ -536,6 +606,137 @@ def run_serving(dev, tmp: str, mma_rate: float) -> dict:
             "padded_product_ratio": padded,
             "mma_sync_floor_ms": floor_ms,
         },
+    }
+    t0 = time.perf_counter()
+    entry_bf16 = run_stack_bf16(dev, fused, requests, rate_bf16, pk)
+    phase("stack bf16 mode", t0)
+    return entry, entry_bf16
+
+
+def run_stack_bf16(dev, fused, requests, rate_bf16: float, pk32) -> dict:
+    """Phase 7b: the fused stack's bf16 operand mode, which
+    `fused_inference_forward(dtype="bfloat16")` reaches (as in JAX, no
+    engine or config routes to it).  The main path: the three requests'
+    magnitudes through it with the bf16 launch count set to 0 just before
+    and read just after (3), each output finite and within 0.05 * max of
+    the float32 fused forward's (the JAX package's bound for its bf16
+    mode), and the kernel at each of those B=1 shapes against its plain
+    bf16 mode (check_bf16_stack).  Then the same for V1/V2/V3 at
+    B=2, T=70 and T=45 and at 64 x 8 s (check_bf16_stack), one inner layer
+    at float32's tolerance, and its time at 64 x 8 s beside the float32
+    kernel, the plain bf16 mode and cuDNN's stack in bf16, its bf16 bound,
+    mma.sync's bf16 floor and the bf16 instance's launch plan (its
+    occupancy from the CUDA calculator).  Returns its `kernels` entry."""
+    from fullycnnspeechenhancement_torch.models import get_model
+    from fullycnnspeechenhancement_torch.models.blocks import conv2d_same
+    from fullycnnspeechenhancement_torch.models.rced import ConvSpec, ModelDef
+    from fullycnnspeechenhancement_torch.ops import rced_stack
+
+    model, params, bn = fused.model, fused.params, fused.bn_state
+    pk = rced_stack.pack_inference_stack(model, params, bn, "bfloat16")
+    mags = []
+    for sig in requests:
+        wav = torch.zeros(1, fused._pad_len(len(sig)), device=dev)
+        wav[0, : len(sig)] = torch.as_tensor(sig, device=dev)
+        mags.append(fused.ext(wav, torch.tensor([len(sig)], dtype=torch.int32, device=dev)))
+    rced_stack.launches_bf16 = 0
+    outs = [rced_stack.fused_inference_forward(model, params, bn, mag, packed=pk, dtype="bfloat16")
+            for mag in mags]
+    torch.cuda.synchronize()
+    launches = rced_stack.launches_bf16
+    log(f"stack bf16 main path: rced_stack bf16 launches {launches}")
+    if launches != len(mags):
+        raise AssertionError(f"rced_stack bf16 launched {launches} times for {len(mags)} calls")
+    max_err = 0.0
+    for mag, out in zip(mags, outs):
+        ref = rced_stack.fused_inference_forward(model, params, bn, mag, packed=pk32)
+        err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+        log(f"fused bf16 T={mag.shape[1]}: {err:.3e} from the float32 fused forward ({err / scale:.3e} of max)")
+        if not torch.isfinite(out).all() or err > 0.05 * scale:
+            raise AssertionError(f"fused bf16 T={mag.shape[1]}: {err:.3e} from float32, max {scale:.3e}")
+        # the kernel at the main path's own B=1 shape, against its plain bf16 mode
+        y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
+        e = check_bf16_stack(f"V2 B=1 T={mag.shape[1]} bf16", rced_stack.stack_forward(pk, y1),
+                             rced_stack.stack_forward_plain(pk, y1))
+        max_err = max(max_err, e)
+        log(f"kernel bf16 V2 B=1 T={mag.shape[1]}: max abs err vs plain bf16 {e:.3e}")
+
+    for name in ("FullyCNN", "FullyCNNV2", "FullyCNNV3"):
+        m = get_model(name)
+        p, st = m.init(torch.Generator().manual_seed(1), device=dev)
+        st = randomized_bn(st, seed=2)
+        pkb = rced_stack.pack_inference_stack(m, p, st, "bfloat16")
+        pkf = rced_stack.pack_inference_stack(m, p, st)
+        for T in (70, 45):
+            mag = torch.as_tensor(np.random.default_rng(T).random((2, T, 129), dtype=np.float32), device=dev)
+            y1 = torch.relu(conv2d_same(mag[:, None], *pkb.first[1:])).contiguous()
+            got = rced_stack.stack_forward(pkb, y1)
+            e = check_bf16_stack(f"{name} T={T} bf16", got, rced_stack.stack_forward_plain(pkb, y1))
+            f32 = rced_stack.stack_forward_plain(pkf, y1)
+            if (got - f32).abs().max() > 0.05 * f32.abs().max():
+                raise AssertionError(f"{name} T={T}: bf16 stack past 0.05 * max of float32")
+            max_err = max(max_err, e)
+            log(f"kernel bf16 {name} B=2 T={T}: max abs err vs plain bf16 {e:.3e}")
+    one = ModelDef("one_layer", (ConvSpec("a", 19, (8, 5)), ConvSpec("b", 32, (1, 13)),
+                                 ConvSpec("c", 1, (1, 129), use_norm=False, use_act=False)))
+    p1, s1 = one.init(torch.Generator().manual_seed(3), device=dev)
+    pk1 = rced_stack.pack_inference_stack(one, p1, randomized_bn(s1, seed=4), "bfloat16")
+    x1 = torch.rand(2, 19, 45, 129, generator=torch.Generator().manual_seed(5)).to(dev)
+    ref1 = rced_stack.stack_forward_plain(pk1, x1)
+    e = check_close("one layer bf16", rced_stack.stack_forward(pk1, x1), ref1, 1e-4, 1e-5 * ref1.abs().max().item())
+    max_err = max(max_err, e)
+    log(f"kernel bf16 one layer (kw 13, 19 -> 32 channels): max abs err vs plain bf16 {e:.3e}")
+
+    B, T = 64, fused.ext.num_frames(8 * 8000)
+    mag = torch.as_tensor(np.random.default_rng(7).random((B, T, 129), dtype=np.float32), device=dev)
+    y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
+    got = rced_stack.stack_forward(pk, y1)
+    e = check_bf16_stack(f"V2 B={B} T={T} bf16", got, rced_stack.stack_forward_plain(pk, y1))
+    max_err = max(max_err, e)
+    f32 = rced_stack.stack_forward(pk32, y1)
+    if (got - f32).abs().max() > 0.05 * f32.abs().max():
+        raise AssertionError("V2 64 x 8 s: bf16 stack past 0.05 * max of float32")
+    folded = rced_stack.fold_bn_inference(model, params, bn)
+    folded16 = [(spec, w.to(torch.bfloat16), b.to(torch.bfloat16)) for spec, w, b in folded]
+    y1_16 = y1.to(torch.bfloat16)
+    del got, f32
+    kernel_ms = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
+    f32_ms = cuda_ms(lambda: rced_stack.stack_forward(pk32, y1), reps=20)
+    plain_ms = cuda_ms(lambda: rced_stack.stack_forward_plain(pk, y1), reps=3, warmup=1)
+    cudnn_ms = cuda_ms(lambda: inner_stack_cudnn(folded16, y1_16), reps=10)
+    kernel_ms_2 = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
+    flop, nbytes = stack_work(pk, B, T)
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    plan = rced_stack.launch_plan(pk, rced_stack.card_blocks_per_sm(pk.smem_floats * 4, dev, "bfloat16"))
+    padded = plan.padded_product_ratio
+    floor_ms = flop * padded / (rate_bf16 * 1e12) * 1e3
+    log(f"timing V2 inner stack bf16 at {B} x 8 s (T={T}): kernel {kernel_ms:.3f} / {kernel_ms_2:.3f} ms, "
+        f"3xTF32 kernel {f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, cuDNN layer by layer in bf16 "
+        f"{cudnn_ms:.3f} ms")
+    log(f"bound bf16: {flop:.4e} FLOP -> {t_ops:.3f} ms at 989 TFLOP/s; {nbytes:.4e} B -> {t_bytes:.3f} ms "
+        f"at 3.35 TB/s; kernel at {100 * bound_ms / kernel_ms:.1f}% of it; m16n8k16 tiles pad the products "
+        f"{padded:.4f}x, at mma.sync's bf16 {rate_bf16:.1f} TFLOP/s the floor is {floor_ms:.3f} ms "
+        f"(kernel at {100 * floor_ms / kernel_ms:.1f}% of it)")
+    log(f"launch plan bf16 (one block per frame, {B * T} blocks at {B} x 8 s): {plan._asdict()}")
+    return {
+        "name": "rced_stack",
+        "dtype": "bfloat16",
+        "route": "cuda",
+        "source": "fullycnnspeechenhancement_torch/ops/csrc/rced_stack.cu",
+        "replaces": "fullycnnspeechenhancement_tpu/ops/pallas_rced.py:135",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "cudnn_stack_bf16_ms": cudnn_ms,
+        "float32_kernel_ms": f32_ms,
+        "mma_sync_bf16_tflops": rate_bf16,
+        # computed from this run's inputs and the rate above, not timed
+        "derived": {"padded_product_ratio": padded, "mma_sync_floor_ms": floor_ms},
     }
 
 
@@ -589,20 +790,22 @@ def write_corpus(root: str, rng) -> dict:
 
 
 def write_train_ini(path: str, root: str, corpus: dict, dw_pallas: bool = True,
-                    base_checkpoint: str = "") -> str:
+                    base_checkpoint: str = "", compute_dtype: str = "float32",
+                    epochs: int = EPOCHS, valid_every: int = VALID_EVERY) -> str:
     """The TPU training profile (work/aishell_1/cfg/fully_cnn_train_tpu.cfg)
-    in float32, with dw_pallas, the host loader, EPOCHS epochs, validation
-    every VALID_EVERY epochs on the premixed validation manifest, and paths
-    under `root`."""
+    without its device cache, in `compute_dtype` (the profile's is
+    bfloat16), with dw_pallas, the host loader, `epochs` epochs, validation
+    every `valid_every` epochs on the premixed validation manifest, and
+    paths under `root`."""
     with open(path, "w") as f:
         f.write(
             "[training]\n"
-            f"epochs={EPOCHS}\nbatch_size={B_TRAIN}\nlr=0.0015\nwarmup_steps=10000\n"
+            f"epochs={epochs}\nbatch_size={B_TRAIN}\nlr=0.0015\nwarmup_steps=10000\n"
             f"continue_train={not base_checkpoint}\n"
             f"checkpoints_path={root}/checkpoints\nbase_checkpoint_file={base_checkpoint}\n"
             f"num_iter_print=50\nlog_dir={root}/log\nsteps_per_call=8\n"
-            f"valid_every_epochs={VALID_EVERY}\n"
-            "[model]\nnet_arch=RCED\nnet_work=FullyCNNV2\ncompute_dtype=float32\n"
+            f"valid_every_epochs={valid_every}\n"
+            f"[model]\nnet_arch=RCED\nnet_work=FullyCNNV2\ncompute_dtype={compute_dtype}\n"
             f"blocked_compute=True\nblocked_fb=8\ndw_pallas={dw_pallas}\n"
             f"[data]\ntrain_manifest_path={corpus['clean']}\n"
             f"train_noise_manifest={corpus['noise']}\n"
@@ -665,21 +868,131 @@ def dw_layer_shapes(model, fb: int = 8):
     return shapes
 
 
-def dw_work(shapes, rows: int, nb: int, kb: int, dc: int):
+def dw_work(shapes, rows: int, nb: int, kb: int, dc: int, in_bytes: int = 4):
     """(FLOP, bytes) the dW contractions of `shapes` over `rows` rows need:
     tap d pairs only the NB - |d - dc| blocks whose shifted z block is real
-    (the others meet the zero halo), z and dy are read once and dW written
-    once, per layer."""
+    (the others meet the zero halo), z and dy (`in_bytes` a value) are read
+    once and dW (float32) written once, per layer."""
     pairs = sum(max(0, nb - abs(d - dc)) for d in range(kb))
     flop = sum(2.0 * rows * pairs * ci * co for _, ci, co in shapes)
-    nbytes = sum(4.0 * (rows * nb * (ci + co) + kb * ci * co) for _, ci, co in shapes)
+    nbytes = sum(in_bytes * rows * nb * (ci + co) + 4.0 * kb * ci * co for _, ci, co in shapes)
     return flop, nbytes
+
+
+def dw_against_plain(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.float32) -> float:
+    """The dW kernel's `dtype` instance against its plain version on
+    `shapes` at B*T = 32,768 and at B=3, T=37 (rtol DW_TOL, atol DW_TOL *
+    max|plain|), each launch repeated bit for bit (no atomics); returns
+    the largest difference."""
+    from fullycnnspeechenhancement_torch.ops import blocked_dw
+
+    label = "blocked_dw" + ("" if dtype == torch.float32 else " bf16")
+    max_err = 0.0
+    for B, T in ((B_TRAIN, T_BUCKET), (3, 37)):
+        for name, ci, co in shapes:
+            z = torch.randn(B, T, nb, ci, device=dev, generator=gen).to(dtype)
+            dy = torch.randn(B, T, nb, co, device=dev, generator=gen).to(dtype)
+            got = blocked_dw.blocked_dw(z, dy, kb, dc)
+            ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
+            e = check_close(f"{label} {name} B={B} T={T}", got, ref, DW_TOL,
+                            DW_TOL * ref.abs().max().item())
+            max_err = max(max_err, e)
+            if not torch.equal(blocked_dw.blocked_dw(z, dy, kb, dc), got):
+                raise AssertionError(f"{label} {name} B={B} T={T}: a second launch differs")
+        log(f"{label} vs plain, 14 layers at B={B} T={T}: max abs err {max_err:.3e}, "
+            f"each launch repeated bit for bit")
+    return max_err
+
+
+def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.float32):
+    """Per layer of `shapes` at 64 x 8 s: the dW kernel's `dtype` instance,
+    its plain version and `torch.nn.grad.conv2d_weight` in `dtype` (cuDNN's
+    backward-filter, the yardstick, held against the kernel first) with
+    CUDA events, and the kernel's launch plan.  Returns the sums over the
+    layers (kernel, plain, library) in ms, and the products the plans
+    compute over the products needed: the tiles pad Ci and Co, and each
+    row's nbp = NB + KB - 1 staged positions run all KB taps."""
+    from fullycnnspeechenhancement_torch.ops import blocked_dw
+
+    # cuDNN sums in its own order and, in bf16, returns dW rounded to bf16
+    lib_rtol, lib_atol = (DW_TOL, DW_TOL) if dtype == torch.float32 else (2.0**-6, 1e-3)
+    label = "" if dtype == torch.float32 else "bf16 "
+    rows = B_TRAIN * T_BUCKET
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    k_ms = p_ms = lib_ms = 0.0
+    for name, ci, co in shapes:
+        z = torch.randn(B_TRAIN, T_BUCKET, nb, ci, device=dev, generator=gen).to(dtype)
+        dy = torch.randn(B_TRAIN, T_BUCKET, nb, co, device=dev, generator=gen).to(dtype)
+        zpad = torch.nn.functional.pad(z.permute(0, 3, 1, 2), (dc, kb - 1 - dc, 0, 0))
+        go = dy.permute(0, 3, 1, 2)
+        lib = torch.nn.grad.conv2d_weight(zpad, (co, ci, 1, kb), go)
+        got = blocked_dw.blocked_dw(z, dy, kb, dc)
+        check_close(f"conv2d_weight {label}{name}", lib.float(), got.permute(3, 2, 0, 1), lib_rtol,
+                    lib_atol * got.abs().max().item())
+        layer_k = cuda_ms(lambda: blocked_dw.blocked_dw(z, dy, kb, dc), reps=10)
+        layer_p = cuda_ms(lambda: blocked_dw.blocked_dw_plain(z, dy, kb, dc), reps=2, warmup=1)
+        layer_lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(zpad, (co, ci, 1, kb), go), reps=10)
+        plan = blocked_dw.launch_plan(rows, nb, ci, co, kb, sm_count,
+                                      blocked_dw.card_blocks_per_sm(kb, dev, dtype), dtype)
+        blocks, slots = plan.tiles * plan.splits, sm_count * plan.blocks_per_sm
+        log(f"  {label}{name} Ci={ci} Co={co}: kernel {layer_k:.3f} ms, plain {layer_p:.3f} ms, "
+            f"conv2d_weight {layer_lib:.3f} ms; plan {plan.tiles} tiles x {plan.splits} splits "
+            f"of {plan.rows_per_split} rows, stages of {plan.stage_rows} rows, {plan.blocks_per_sm} "
+            f"blocks per SM at {plan.smem_bytes} B, {blocks / (-(-blocks // slots) * slots):.3f} of "
+            f"the waves' slots")
+        k_ms, p_ms, lib_ms = k_ms + layer_k, p_ms + layer_p, lib_ms + layer_lib
+        del z, dy, zpad, go, lib, got
+    tci, tco = blocked_dw.TILE, blocked_dw.tile_co(dtype)
+    padded = sum(-(-ci // tci) * -(-co // tco) * tci * tco for _, ci, co in shapes) / sum(
+        ci * co for _, ci, co in shapes)
+    computed = padded * (nb + kb - 1) * kb / sum(max(0, nb - abs(d - dc)) for d in range(kb))
+    return k_ms, p_ms, lib_ms, padded, computed
+
+
+def time_steps(trainers: dict, batch) -> dict:
+    """ms of a whole train step on `batch` with dw_pallas on and off, in
+    turns (on, off, off, on; 3 steps each after one), by dw_pallas."""
+    payload = {dw: trainers[dw]._prep_single(batch) for dw in (True, False)}
+    step_ms = {True: [], False: []}
+    for dw in (True, False, False, True):
+        tr = trainers[dw]
+        tr.state, _ = tr._step(tr.state, payload[dw])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            tr.state, _ = tr._step(tr.state, payload[dw])
+        torch.cuda.synchronize()
+        step_ms[dw].append((time.perf_counter() - t1) * 1e3 / 3)
+    return step_ms
+
+
+@contextlib.contextmanager
+def timed_validation(validations: list):
+    """Within the block, each `Trainer.validate` appends (epoch, seconds,
+    results) to `validations`."""
+    from fullycnnspeechenhancement_torch.train import trainer as trainer_mod
+
+    real_validate = trainer_mod.Trainer.validate
+
+    def timed_validate(self, loader, epoch, log=None):
+        v0 = time.perf_counter()
+        out = real_validate(self, loader, epoch, log)
+        validations.append((epoch, time.perf_counter() - v0, out))
+        return out
+
+    trainer_mod.Trainer.validate = timed_validate
+    try:
+        yield
+    finally:
+        trainer_mod.Trainer.validate = real_validate
 
 
 def run_training(dev, tmp: str, rate: float):
     """Phases 8-11: the training path through the dW kernel, with one
-    validation pass.  Returns the `blocked_dw` entry of the `kernels` line
-    and the last checkpoint."""
+    validation pass.  Returns the `blocked_dw` entry of the `kernels` line,
+    the last checkpoint, and what phases 11a-11c reuse: the corpus, the
+    parity phase's initial state and batches, its float32 losses, and the
+    float32 step and kernel times."""
     from fullycnnspeechenhancement_torch import Config, ModelConfig, load_ini_config
     from fullycnnspeechenhancement_torch.cli import train as train_cli
     from fullycnnspeechenhancement_torch.infer import InferenceEngine
@@ -688,7 +1001,6 @@ def run_training(dev, tmp: str, rate: float):
     from fullycnnspeechenhancement_torch.ops import blocked_dw
     from fullycnnspeechenhancement_torch.train.checkpoint import export_params_npz
     from fullycnnspeechenhancement_torch.eval.metrics import PESQ
-    from fullycnnspeechenhancement_torch.train import trainer as trainer_mod
     from fullycnnspeechenhancement_torch.train.trainer import Trainer
 
     rng = np.random.default_rng(1)
@@ -704,21 +1016,10 @@ def run_training(dev, tmp: str, rate: float):
     root = os.path.join(tmp, "train")
     ini = write_train_ini(os.path.join(tmp, "train.cfg"), root, corpus)
     validations = []
-    real_validate = trainer_mod.Trainer.validate
-
-    def timed_validate(self, loader, epoch, log=None):
-        v0 = time.perf_counter()
-        out = real_validate(self, loader, epoch, log)
-        validations.append((epoch, time.perf_counter() - v0, out))
-        return out
-
     t0 = time.perf_counter()
     blocked_dw.launches = 0
-    trainer_mod.Trainer.validate = timed_validate
-    try:
+    with timed_validation(validations):
         trainer = train_cli.main(["--cfg", ini])
-    finally:
-        trainer_mod.Trainer.validate = real_validate
     torch.cuda.synchronize()
     launches = blocked_dw.launches
     main_s = time.perf_counter() - t0
@@ -825,21 +1126,7 @@ def run_training(dev, tmp: str, rate: float):
     nb = -(-129 // 8)
     shapes = dw_layer_shapes(model)
     gen = torch.Generator(device=dev).manual_seed(5)
-    max_err = 0.0
-    for B, T in ((B_TRAIN, T_BUCKET), (3, 37)):
-        for name, ci, co in shapes:
-            z = torch.randn(B, T, nb, ci, device=dev, generator=gen)
-            dy = torch.randn(B, T, nb, co, device=dev, generator=gen)
-            got = blocked_dw.blocked_dw(z, dy, kb, dc)
-            ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
-            e = check_close(f"blocked_dw {name} B={B} T={T}", got, ref, DW_TOL,
-                            DW_TOL * ref.abs().max().item())
-            max_err = max(max_err, e)
-            # no atomics: a second launch repeats the first bit for bit
-            if not torch.equal(blocked_dw.blocked_dw(z, dy, kb, dc), got):
-                raise AssertionError(f"blocked_dw {name} B={B} T={T}: a second launch differs")
-        log(f"blocked_dw vs plain, 14 layers at B={B} T={T}: max abs err {max_err:.3e}, "
-            f"each launch repeated bit for bit")
+    max_err = dw_against_plain(dev, shapes, kb, dc, nb, gen)
     # the Function against autograd of the raw conv (tests/test_pallas_dw.py:48-50)
     z0 = torch.randn(2, 9, 5, 24, device=dev, generator=gen)
     w0 = 0.1 * torch.randn(1, 4, 24, 16, device=dev, generator=gen)
@@ -873,41 +1160,13 @@ def run_training(dev, tmp: str, rate: float):
     # -- 11. timings -----------------------------------------------------------
     t0 = time.perf_counter()
     rows_full = B_TRAIN * T_BUCKET
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    k_ms = p_ms = lib_ms = 0.0
-    for name, ci, co in shapes:
-        z = torch.randn(B_TRAIN, T_BUCKET, nb, ci, device=dev, generator=gen)
-        dy = torch.randn(B_TRAIN, T_BUCKET, nb, co, device=dev, generator=gen)
-        zpad = torch.nn.functional.pad(z.permute(0, 3, 1, 2), (dc, kb - 1 - dc, 0, 0))
-        go = dy.permute(0, 3, 1, 2)
-        lib = torch.nn.grad.conv2d_weight(zpad, (co, ci, 1, kb), go)
-        got = blocked_dw.blocked_dw(z, dy, kb, dc)
-        check_close(f"conv2d_weight {name}", lib, got.permute(3, 2, 0, 1), DW_TOL,
-                    DW_TOL * got.abs().max().item())
-        layer_k = cuda_ms(lambda: blocked_dw.blocked_dw(z, dy, kb, dc), reps=10)
-        layer_p = cuda_ms(lambda: blocked_dw.blocked_dw_plain(z, dy, kb, dc), reps=2, warmup=1)
-        layer_lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(zpad, (co, ci, 1, kb), go), reps=10)
-        plan = blocked_dw.launch_plan(rows_full, nb, ci, co, kb, sm_count,
-                                      blocked_dw.card_blocks_per_sm(kb, dev))
-        blocks, slots = plan.tiles * plan.splits, sm_count * plan.blocks_per_sm
-        log(f"  {name} Ci={ci} Co={co}: kernel {layer_k:.3f} ms, plain {layer_p:.3f} ms, "
-            f"conv2d_weight {layer_lib:.3f} ms; plan {plan.tiles} tiles x {plan.splits} splits "
-            f"of {plan.rows_per_split} rows, {plan.blocks_per_sm} blocks per SM at "
-            f"{plan.smem_bytes} B, {blocks / (-(-blocks // slots) * slots):.3f} of the waves' slots")
-        k_ms, p_ms, lib_ms = k_ms + layer_k, p_ms + layer_p, lib_ms + layer_lib
-        del z, dy, zpad, go, lib, got
+    k_ms, p_ms, lib_ms, padded, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen)
     flop, nbytes = dw_work(shapes, rows_full, nb, kb, dc)
     # 3xTF32 issues three TF32 products for each float32 one
     t_ops, t_simt = 3 * flop / PEAK_TF32_FLOPS * 1e3, flop / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
-    # the products the kernel computes: its tiles pad Ci and Co to TILE,
-    # and each row's nbp = NB + KB - 1 staged positions run all KB taps
-    tile = blocked_dw.TILE
-    padded = sum(-(-ci // tile) * -(-co // tile) * tile * tile for _, ci, co in shapes) / sum(
-        ci * co for _, ci, co in shapes)
     nbp = nb + kb - 1
-    computed = padded * nbp * kb / sum(max(0, nb - abs(d - dc)) for d in range(kb))
     floor_ms = 3 * flop * computed / (rate * 1e12) * 1e3
     log(f"timing blocked_dw over V2's 14 layers at {B_TRAIN} x 8 s (B*T={rows_full}): kernel {k_ms:.3f} ms, "
         f"plain {p_ms:.3f} ms, conv2d_weight (cuDNN) {lib_ms:.3f} ms")
@@ -919,19 +1178,8 @@ def run_training(dev, tmp: str, rate: float):
         f"mma.sync TF32 alone runs at {rate:.1f} TFLOP/s here, so its floor is {floor_ms:.3f} ms "
         f"(kernel at {100 * floor_ms / k_ms:.1f}% of it)")
 
-    # whole train steps, dw_pallas on and off in turns (on, off, off, on)
     audio_s = float(sum(b.lengths.sum() for b in batches[:1])) / SR
-    payload = {dw: trainers[dw]._prep_single(batches[0]) for dw in (True, False)}
-    step_ms = {True: [], False: []}
-    for dw in (True, False, False, True):
-        tr = trainers[dw]
-        tr.state, _ = tr._step(tr.state, payload[dw])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(3):
-            tr.state, _ = tr._step(tr.state, payload[dw])
-        torch.cuda.synchronize()
-        step_ms[dw].append((time.perf_counter() - t1) * 1e3 / 3)
+    step_ms = time_steps(trainers, batches[0])
     for dw in (True, False):
         ms = float(np.mean(step_ms[dw]))
         log(f"train step {B_TRAIN} x 8 s, dw_pallas={dw}: {step_ms[dw][0]:.2f} / {step_ms[dw][1]:.2f} ms "
@@ -951,7 +1199,8 @@ def run_training(dev, tmp: str, rate: float):
     log(f"one steps_per_call=8 dispatch (8 x {B_TRAIN} x 8 s): host {host_ms:.2f} ms traced, "
         f"{dispatch_audio / host_ms * 1e3:.1f} audio-s/s, {busy}")
     # where cuDNN converts layouts inside one train step
-    conv = layout_conversions(lambda: tr._step(tr.state, payload[True]))
+    payload = tr._prep_single(batches[0])
+    conv = layout_conversions(lambda: tr._step(tr.state, payload))
     log("layout conversions of one train step: not linked to ops by the profiler" if conv is None
         else f"layout conversions of one train step: {conv[0]} kernels, {conv[1]:.3f} ms")
     phase("dw timings", t0)
@@ -960,6 +1209,7 @@ def run_training(dev, tmp: str, rate: float):
 
     entry = {
         "name": "blocked_dw",
+        "dtype": "float32",
         "route": "cuda",
         "source": "fullycnnspeechenhancement_torch/ops/csrc/blocked_dw.cu",
         "replaces": "fullycnnspeechenhancement_tpu/ops/pallas_dw.py:51",
@@ -968,7 +1218,8 @@ def run_training(dev, tmp: str, rate: float):
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations, 3xTF32 tensor cores" if t_ops >= t_bytes else "bytes",
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_note": "3xTF32 on the tensor cores at the data sheet's TF32 rate",
         "library_ms": lib_ms,
         "mma_sync_tf32_tflops": rate,
         # computed from this run's inputs and the rate above, not timed
@@ -979,7 +1230,157 @@ def run_training(dev, tmp: str, rate: float):
             "mma_sync_floor_ms": floor_ms,
         },
     }
-    return entry, last
+    ctx = {"corpus": corpus, "npz": npz, "batches": batches[:PARITY_STEPS], "losses32": losses[True],
+           "step_ms32": {dw: float(np.mean(v)) for dw, v in step_ms.items()}, "kernel_ms32": k_ms}
+    return entry, last, ctx
+
+
+def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float) -> dict:
+    """Phases 11a-11c: the training path in bf16, through the dW kernel's
+    bf16 mode.  Returns the bf16 `blocked_dw` entry of the `kernels` line."""
+    from fullycnnspeechenhancement_torch import load_ini_config
+    from fullycnnspeechenhancement_torch.cli import train as train_cli
+    from fullycnnspeechenhancement_torch.eval.metrics import PESQ
+    from fullycnnspeechenhancement_torch.models import get_model
+    from fullycnnspeechenhancement_torch.models.blocked import _block_index_map
+    from fullycnnspeechenhancement_torch.ops import blocked_dw
+    from fullycnnspeechenhancement_torch.train.trainer import Trainer
+
+    model = get_model("FullyCNNV2")
+    n_dw = sum(1 for spec in model.layers if spec.kernel[0] == 1 and spec.kernel[1] < 129)
+    corpus, bf16 = ctx["corpus"], torch.bfloat16
+
+    # -- 11a. the bf16 training main path -------------------------------------
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "train_bf16")
+    ini = write_train_ini(os.path.join(tmp, "train_bf16.cfg"), root, corpus, compute_dtype="bfloat16",
+                          epochs=EPOCHS_BF16, valid_every=1)
+    validations = []
+    blocked_dw.launches = blocked_dw.launches_bf16 = 0
+    with timed_validation(validations):
+        trainer = train_cli.main(["--cfg", ini])
+    torch.cuda.synchronize()
+    launches, launches32 = blocked_dw.launches_bf16, blocked_dw.launches
+    main_s = time.perf_counter() - t0
+    with open(os.path.join(root, "log", "scalars_RCED_FullyCNNV2.jsonl")) as f:
+        all_rows = [json.loads(line) for line in f]
+    rows = [r for r in all_rows if "loss" in r]
+    valid = [r for r in all_rows if any(k.startswith("valid_") for k in r)]
+    steps = len(rows)
+    log(f"bf16 training main path: {steps} steps in {main_s:.1f} s, blocked_dw bf16 launches {launches} "
+        f"(float32 {launches32}), losses {[round(r['loss'], 3) for r in rows]}")
+    if steps != EPOCHS_BF16 * N_UTTS // B_TRAIN:
+        raise AssertionError(f"bf16: {steps} logged steps, expected {EPOCHS_BF16 * N_UTTS // B_TRAIN}")
+    if launches != n_dw * steps or launches32 != 0:
+        raise AssertionError(f"bf16: blocked_dw launched {launches} bf16 and {launches32} float32 times "
+                             f"in {steps} steps, expected {n_dw * steps} and 0")
+    if not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError("bf16: a logged loss is not finite")
+    files = sorted(os.listdir(trainer.ckpt.dir))
+    if files != [f"epoch_{e}.pt" for e in range(EPOCHS_BF16)]:
+        raise AssertionError(f"bf16: checkpoints {files}")
+    if any(v.dtype != torch.float32 for d in trainer.state.params.values() for v in d.values()):
+        raise AssertionError("bf16: a param is not float32")
+    log(f"bf16 validation scalars: {valid}")
+    keys = sorted(k for k in valid[0] if k != "epoch") if len(valid) == 1 else []
+    if [e for e, _, _ in validations] != [0] or keys != ["valid_pesq", "valid_sdr", "valid_stoi"] \
+            or not all(np.isfinite(valid[0][k]) for k in keys):
+        raise AssertionError(f"bf16: validated after {validations}, scalars {valid}")
+    if trainer.evaluator.scoring != "process" or PESQ(sr=SR).implementation != "p862-native":
+        raise AssertionError("bf16: validation left the fork pool or the native PESQ")
+    log(f"bf16 validation pass: {N_VAL} utterances ({corpus['val_seconds']:.1f} audio-s) in "
+        f"{validations[0][1]:.2f} s, {corpus['val_seconds'] / validations[0][1]:.1f} audio-s/s")
+    phase("bf16 training main path", t0)
+
+    # -- 11b. parity: dw_pallas on and off under bf16, and float32 -------------
+    t0 = time.perf_counter()
+    trainers, losses, moments = {}, {}, {}
+    for dw in (True, False):
+        cfg = load_ini_config(write_train_ini(
+            os.path.join(tmp, f"parity_bf16_{dw}.cfg"), os.path.join(tmp, f"parity_bf16_{dw}"), corpus,
+            dw_pallas=dw, base_checkpoint=ctx["npz"], compute_dtype="bfloat16",
+        ))
+        tr = Trainer(cfg, device="cuda")
+        losses[dw], moments[dw] = [], []
+        for b in ctx["batches"]:
+            tr.state, m = tr._step(tr.state, tr._prep_single(b))
+            losses[dw].append(m["loss"])
+            moments[dw].append({name: flat_leaves(getattr(tr.state.opt_state, name)) for name in ("mu", "nu")})
+        losses[dw] = torch.stack(losses[dw]).cpu().numpy()
+        trainers[dw] = tr
+    log(f"bf16 parity losses dw_pallas on {losses[True].tolist()} off {losses[False].tolist()}")
+    np.testing.assert_allclose(losses[True], losses[False], rtol=PARITY_LOSS_RTOL_BF16)
+    worst = 0.0
+    for k in range(len(ctx["batches"])):
+        errs = {m: global_err(moments[True][k][m], moments[False][k][m]) for m in ("mu", "nu")}
+        worst = max(worst, *errs.values())
+        log(f"bf16 parity step {k}: Adam mu off by {errs['mu']:.3e}, nu by {errs['nu']:.3e} of their global scale")
+        if max(errs.values()) > PARITY_MOMENT_TOL_BF16:
+            raise AssertionError(f"bf16 parity step {k}: moments differ by {errs} of their scale")
+    diff = (losses[True] - ctx["losses32"]) / ctx["losses32"]
+    log(f"bf16 against float32 from one state (dw_pallas on, the same {len(diff)} batches): "
+        f"per-step loss difference {diff.tolist()} of the float32 loss (not gated)")
+    phase("bf16 parity", t0)
+
+    # -- 11c. the bf16 kernel against its plain version, and timings ----------
+    t0 = time.perf_counter()
+    J, dc = _block_index_map(5, 8)
+    kb, nb = J.shape[0], -(-129 // 8)
+    shapes = dw_layer_shapes(model)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    max_err = dw_against_plain(dev, shapes, kb, dc, nb, gen, bf16)
+    k_ms, p_ms, lib_ms, _, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen, bf16)
+    flop, nbytes = dw_work(shapes, B_TRAIN * T_BUCKET, nb, kb, dc, in_bytes=2)
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    floor_ms = flop * computed / (rate_bf16 * 1e12) * 1e3
+    log(f"timing blocked_dw bf16 over V2's 14 layers at {B_TRAIN} x 8 s: kernel {k_ms:.3f} ms (3xTF32 "
+        f"{ctx['kernel_ms32']:.3f} ms), plain {p_ms:.3f} ms, conv2d_weight in bf16 (cuDNN) {lib_ms:.3f} ms")
+    log(f"bound bf16: {flop:.4e} FLOP -> {t_ops:.3f} ms at 989 TFLOP/s; {nbytes:.4e} B -> {t_bytes:.3f} ms at "
+        f"3.35 TB/s; kernel at {100 * bound_ms / k_ms:.1f}% of it; it computes {computed:.4f}x the needed "
+        f"products, at mma.sync's bf16 {rate_bf16:.1f} TFLOP/s a floor of {floor_ms:.3f} ms "
+        f"(kernel at {100 * floor_ms / k_ms:.1f}% of it)")
+    # whole bf16 train steps, beside float32's
+    audio_s = float(sum(b.lengths.sum() for b in ctx["batches"][:1])) / SR
+    step_ms = time_steps(trainers, ctx["batches"][0])
+    for dw in (True, False):
+        ms = float(np.mean(step_ms[dw]))
+        log(f"train step bf16 {B_TRAIN} x 8 s, dw_pallas={dw}: {step_ms[dw][0]:.2f} / {step_ms[dw][1]:.2f} ms "
+            f"(mean {ms:.2f} ms, {audio_s / ms * 1e3:.1f} audio-s/s; float32 {ctx['step_ms32'][dw]:.2f} ms)")
+    tr = trainers[True]
+    stacked = tr._prep_multi(ctx["batches"] * 2)
+
+    def dispatch():
+        tr.state, packed = tr._multi_step(tr.state, stacked)
+        return packed
+
+    host_ms, busy_ms, events = device_busy_ms(dispatch, reps=1, top=8)
+    log(f"one steps_per_call=8 bf16 dispatch: host {host_ms:.2f} ms traced, " + (
+        "device busy not measured" if busy_ms is None else
+        f"device busy {busy_ms:.2f} ms in {events:.0f} device events, idle share {1 - busy_ms / host_ms:.3f}"))
+    for t in trainers.values():
+        t.ckpt.close()
+    phase("bf16 dw kernel checks and timings", t0)
+    return {
+        "name": "blocked_dw",
+        "dtype": "bfloat16",
+        "route": "cuda",
+        "source": "fullycnnspeechenhancement_torch/ops/csrc/blocked_dw.cu",
+        "replaces": "fullycnnspeechenhancement_tpu/ops/pallas_dw.py:51",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib_ms,
+        "library": "torch.nn.grad.conv2d_weight on bf16 (cuDNN backward-filter), one call per layer",
+        "float32_kernel_ms": ctx["kernel_ms32"],
+        "mma_sync_bf16_tflops": rate_bf16,
+        "train_step_bf16_ms": {"dw_pallas": float(np.mean(step_ms[True])), "cudnn": float(np.mean(step_ms[False]))},
+        # computed from this run's inputs and the rate above, not timed
+        "derived": {"computed_product_ratio": computed, "mma_sync_floor_ms": floor_ms},
+    }
 
 
 # -- the kernel-probe path -------------------------------------------------
@@ -1040,7 +1441,7 @@ def tf32_bound_of(flop, nbytes):
     """(bound ms, what bounds it) of a 3xTF32 kernel: three TF32 products
     for each float32 one at the data sheet's 495 TFLOP/s, or the bytes."""
     t_ops, t_bytes = 3 * flop / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations, 3xTF32 tensor cores" if t_ops >= t_bytes else "bytes")
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def conv_plan_fields(plan, rate):
@@ -1519,10 +1920,11 @@ def run_evaluation(dev, tmp: str, checkpoint: str) -> dict:
     return {"launches": runs[True][1], "max_abs_err": max_err}
 
 
-# The rate of independent mma.sync.m16n8k8 TF32 products when nothing else
-# is issued, A and B from 2 and 8 register sets as in blocked_dw.cu: the
-# most that kernel's instruction could give, beside the data sheet's 495
-# TFLOP/s (which wgmma reaches).
+# The rate of independent mma.sync.m16n8k8 TF32 products (and, in the
+# second kernel, m16n8k16 bf16 ones) when nothing else is issued, A and B
+# from 2 and 8 register sets as in blocked_dw.cu: the most that kernel's
+# instruction could give, beside the data sheet's 495 (989 in bf16)
+# TFLOP/s, which wgmma reaches.
 MMA_RATE_SRC = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1550,6 +1952,32 @@ extern "C" int mma_rate_launch(float* out, int blocks, int iters) {
   mma_rate<<<blocks, 128>>>(out, iters);
   return (int)cudaGetLastError();
 }
+// The same with mma.sync.m16n8k16 on bf16 operands (float32 accumulators),
+// as the bf16 modes of rced_stack.cu and blocked_dw.cu issue it.
+__global__ void __launch_bounds__(128) mma_rate_bf16(float* out, int iters) {
+  uint32_t a[2][4], b[8][2];
+  for (int i = 0; i < 2; ++i) for (int c = 0; c < 4; ++c) a[i][c] = threadIdx.x * (i + 3) + c;
+  for (int i = 0; i < 8; ++i) for (int c = 0; c < 2; ++c) b[i][c] = threadIdx.x * (i + 5) + c;
+  float acc[16][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+      asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                   : "+f"(acc[n][0]), "+f"(acc[n][1]), "+f"(acc[n][2]), "+f"(acc[n][3])
+                   : "r"(a[n / 8][0]), "r"(a[n / 8][1]), "r"(a[n / 8][2]), "r"(a[n / 8][3]),
+                     "r"(b[n % 8][0]), "r"(b[n % 8][1]));
+    a[it & 1][0] ^= it;
+    b[it & 7][0] ^= it;
+  }
+  float s = 0.f;
+  for (int n = 0; n < 16; ++n) s += acc[n][0] + acc[n][1] + acc[n][2] + acc[n][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_rate_bf16_launch(float* out, int blocks, int iters) {
+  mma_rate_bf16<<<blocks, 128>>>(out, iters);
+  return (int)cudaGetLastError();
+}
 """
 
 
@@ -1565,20 +1993,21 @@ def build_mma_rate() -> str:
     return str(lib)
 
 
-def mma_sync_tf32_tflops(lib_path: str) -> float:
-    """TFLOP/s of MMA_RATE_SRC's kernel: 16 warps per SM, 16 independent
+def mma_sync_tflops(lib_path: str, bf16: bool = False) -> float:
+    """TFLOP/s of MMA_RATE_SRC's TF32 kernel (m16n8k8, 2048 FLOP an mma)
+    or its bf16 one (m16n8k16, 4096): 16 warps per SM, 16 independent
     accumulators each, timed with CUDA events after a warm-up."""
     import ctypes
 
-    lib = ctypes.CDLL(lib_path)
-    lib.mma_rate_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    launch = getattr(ctypes.CDLL(lib_path), "mma_rate_bf16_launch" if bf16 else "mma_rate_launch")
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.empty(blocks * 128, device="cuda")
     iters = 10000
-    if lib.mma_rate_launch(out.data_ptr(), blocks, 100) != 0:
+    if launch(out.data_ptr(), blocks, 100) != 0:
         raise RuntimeError("mma_rate launch failed")
-    ms = cuda_ms(lambda: lib.mma_rate_launch(out.data_ptr(), blocks, iters), reps=3, warmup=1)
-    return blocks * 4 * iters * 16 * 2048 / ms / 1e9
+    ms = cuda_ms(lambda: launch(out.data_ptr(), blocks, iters), reps=3, warmup=1)
+    return blocks * 4 * iters * 16 * (4096 if bf16 else 2048) / ms / 1e9
 
 
 def build_kernels() -> str:
@@ -1638,14 +2067,17 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    mma_rate = mma_sync_tf32_tflops(build_kernels())
-    log(f"mma.sync m16n8k8 TF32 alone: {mma_rate:.1f} TFLOP/s")
+    rate_lib = build_kernels()
+    mma_rate = mma_sync_tflops(rate_lib)
+    rate_bf16 = mma_sync_tflops(rate_lib, bf16=True)
+    log(f"mma.sync m16n8k8 TF32 alone: {mma_rate:.1f} TFLOP/s; m16n8k16 bf16 alone: {rate_bf16:.1f} TFLOP/s")
     phase("build", t0)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        stack_entry = run_serving(dev, tmp, mma_rate)
+        stack_entry, stack_bf16_entry = run_serving(dev, tmp, mma_rate, rate_bf16)
         phase("serving", t0)
-        dw_entry, last_checkpoint = run_training(dev, tmp, mma_rate)
+        dw_entry, last_checkpoint, train_ctx = run_training(dev, tmp, mma_rate)
+        dw_bf16_entry = run_training_bf16(dev, tmp, train_ctx, rate_bf16)
         t0 = time.perf_counter()
         probe_path = run_probe_path(dev, mma_rate)
         phase("probe path", t0)
@@ -1665,6 +2097,7 @@ def main() -> int:
     conv_sum, stack_sum = probe_path["summary"]["freq_conv"], probe_path["summary"]["freq_conv_stack"]
     conv_entry = {
         "name": "freq_conv",
+        "dtype": "float32",
         "route": "cuda",
         "source": "fullycnnspeechenhancement_torch/ops/csrc/freq_conv.cu",
         "replaces": "benchmarks/micro_pallas_conv.py:54",
@@ -1675,6 +2108,7 @@ def main() -> int:
         "plain_ms": v2["plain_ms"],
         "bound_ms": v2["bound_ms"],
         "bound_by": v2["bound_by"],
+        "bound_note": "3xTF32 on the tensor cores at the data sheet's TF32 rate",
         "library_ms": v2["cudnn_ms"],
         "library": "F.conv2d (cuDNN, TF32 off), one call per layer",
         "mma_sync_tf32_tflops": mma_rate,
@@ -1689,6 +2123,7 @@ def main() -> int:
     deep = chain[max(chain)]
     chain_entry = {
         "name": "freq_conv_stack",
+        "dtype": "float32",
         "route": "cuda",
         "source": "fullycnnspeechenhancement_torch/ops/csrc/freq_conv.cu",
         "replaces": "benchmarks/micro_pallas_roll.py:73",
@@ -1701,6 +2136,7 @@ def main() -> int:
         "plain_ms": deep["plain_ms"],
         "bound_ms": deep["bound_ms"],
         "bound_by": deep["bound_by"],
+        "bound_note": "3xTF32 on the tensor cores at the data sheet's TF32 rate",
         "library_ms": None,
         "library": "none: no single PyTorch call computes a chain of masked circular convs",
         "chained_freq_conv_ms": deep["chained_ms"],
@@ -1714,7 +2150,7 @@ def main() -> int:
         },
         "at": f"roll2's shape, depth {max(chain)}; launches on the probe path",
     }
-    entries = [stack_entry, dw_entry, conv_entry, chain_entry]
+    entries = [stack_entry, stack_bf16_entry, dw_entry, dw_bf16_entry, conv_entry, chain_entry]
     for e in entries:
         e["kernel_ms"] = e["ms"]
     kernels = {"kernels": entries}

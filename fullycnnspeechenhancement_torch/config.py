@@ -17,10 +17,10 @@ Known reference quirks handled here (SURVEY.md Appendix A.1/A.2):
     (hamming / 256) and warn when an INI file asks for something the
     reference would silently ignore.
 
-Fields that belong to modules not yet ported (validation, the device
-cache, data parallelism, the native loader) are parsed all the same, so a
-config round-trips unchanged; the entry points raise `NotImplementedError`
-naming the ROADMAP.md item when one of them is set.
+Fields that belong to modules not yet ported (the device cache, data
+parallelism) are parsed all the same, so a config round-trips unchanged;
+the entry points raise `NotImplementedError` naming the ROADMAP.md item
+when one of them is set.
 """
 
 from __future__ import annotations
@@ -86,9 +86,10 @@ class ModelConfig:
     # FullyCNN | FullyCNNV2 | FullyCNNV3 (reference [model] net_work).
     net_work: str = "FullyCNNV2"
     feature_dim: int = 129
-    # Compute dtype for conv stacks.  float32 matches the reference; the
-    # port serves and trains float32 only so far (the train step raises on
-    # bfloat16, which is queued in ROADMAP.md).
+    # Compute dtype for conv stacks.  float32 matches the reference;
+    # bfloat16 is the fast path (params stay f32, activations bf16) of the
+    # train and eval steps.  The engine and the fused stack serve float32
+    # whatever it says, as in the JAX package.
     compute_dtype: str = "float32"
     # Serve inference through the fused inner-stack kernel
     # (ops/rced_stack.py, CUDA source ops/csrc/rced_stack.cu): one

@@ -89,7 +89,7 @@ class InferenceEngine:
                     f"{ckpt_path}: neither an npz file nor a checkpoint (file or "
                     "run directory) of this package; the JAX package's orbax "
                     "directories need JAX to read: export them to npz with its "
-                    "export_params_npz (ROADMAP.md Queue 1 item 3)"
+                    "export_params_npz"
                 )
             logger.info("loading checkpoint: %s", found)
             return load_params(found, self.device)

@@ -13,10 +13,12 @@ weight gradient is
     dW[d, ci, co] = sum_{b, t, n} zpad[b, t, n + d - dc, ci] * dy[b, t, n, co]
 
 returned as [1, KB, Ci, Co] (HWIO) float32, as `blocked_dw_pallas` returns
-it.  `blocked_dw` is the kernel's wrapper: on a CPU tensor it runs
-`blocked_dw_plain`, the same contraction as einsums; on a CUDA tensor it
-launches the kernel (building it on first use) or raises.  `launches`
-counts kernel launches.
+it.  z and dy are both float32 or both bfloat16 (the compute dtype, as the
+JAX kernel takes them); the kernel has an instance for each, 3xTF32 and
+bf16 `mma.sync`.  `blocked_dw` is the kernel's wrapper: on a CPU tensor it
+runs `blocked_dw_plain`, the same contraction as einsums in float32; on a
+CUDA tensor it launches the kernel (building it on first use) or raises.
+`launches` and `launches_bf16` count each instance's launches.
 
 `blocked_freq_conv` is the autograd Function around the raw blocked conv
 (JAX's `custom_vjp`): the forward and dX are cuDNN convs, dW is
@@ -36,15 +38,20 @@ import torch.nn.functional as F
 from fullycnnspeechenhancement_torch.ops import build
 
 MAX_KB = 8  # taps the kernel is instantiated for
-TILE = 32  # co and ci per block (csrc kBm, kBn)
+TILE = 32  # ci per block, and co per block of the float32 instance (csrc kBn, kBm)
+TILE_CO_BF16 = 64  # co per block of the bf16 instance (csrc kBmBf16)
 ROW_PAD = 4  # floats after each staged position's channels (csrc kRowPad)
+ROW_PAD_BF16 = 8  # the same in bf16 values (csrc kRowPadBf16)
 STAGE_POSITIONS = 80  # flat K positions (rows x nbp) aimed at per stage
+K_STEP = {torch.float32: 8, torch.bfloat16: 16}  # K per mma.sync (m16n8k8, m16n8k16)
 SMEM_BYTES = 232_448  # the most shared memory one Hopper block can use
 SM_SMEM_BYTES = 233_472  # shared memory of one SM; each block also takes 1 KiB
 MAX_WAVES = 4  # waves of blocks the row splits may take
 
-# Kernel launches since the count was last set to 0.
+# Kernel launches since the counts were last set to 0: the float32
+# instance and the bf16 one.
 launches = 0
+launches_bf16 = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _occupancy: dict = {}
@@ -52,9 +59,9 @@ _occupancy: dict = {}
 
 class Plan(NamedTuple):
     """How one `blocked_dw` launch covers its problem: `tiles` blocks of
-    TILE co by TILE ci per row split, stages of `stage_rows` rows
-    (`smem_bytes` of shared memory for two, `blocks_per_sm` resident blocks
-    at that), and `splits` row splits of `rows_per_split` rows."""
+    `tile_co(dtype)` co by TILE ci per row split, stages of `stage_rows`
+    rows (`smem_bytes` of shared memory for two, `blocks_per_sm` resident
+    blocks at that), and `splits` row splits of `rows_per_split` rows."""
 
     stage_rows: int
     smem_bytes: int
@@ -64,19 +71,28 @@ class Plan(NamedTuple):
     splits: int
 
 
-def stage_rows_for(nb: int, kb: int) -> int:
+def tile_co(dtype=torch.float32) -> int:
+    """co per block of the `dtype` instance."""
+    return TILE_CO_BF16 if dtype == torch.bfloat16 else TILE
+
+
+def stage_rows_for(nb: int, kb: int, dtype=torch.float32) -> int:
     """Rows per stage: a multiple of the fewest whose nbp = NB + KB - 1
-    positions each make whole k8 chunks, with about STAGE_POSITIONS
-    positions in all."""
+    positions each make whole K chunks of the dtype's mma (8 positions,
+    16 in bf16), with about STAGE_POSITIONS positions in all."""
     nbp = nb + kb - 1
-    step = 8 // math.gcd(nbp, 8)
+    step = K_STEP[dtype] // math.gcd(nbp, K_STEP[dtype])
     return step * max(1, STAGE_POSITIONS // (step * nbp))
 
 
-def smem_bytes(stage_rows: int, nb: int, kb: int) -> int:
+def smem_bytes(stage_rows: int, nb: int, kb: int, dtype=torch.float32) -> int:
     """Shared memory of one block, two stages (csrc `blocked_dw_smem_bytes`):
-    dy [P, TILE + 4] and z [P + KB - 1, TILE + 4] floats, P = stage_rows * nbp."""
+    dy [P, tile_co + pad] and z [P + KB - 1, TILE + pad] values, P =
+    stage_rows * nbp; 4 floats of pad, or 8 bf16."""
     positions = stage_rows * (nb + kb - 1)
+    if dtype == torch.bfloat16:
+        return 2 * 2 * (positions * (TILE_CO_BF16 + ROW_PAD_BF16)
+                         + (positions + kb - 1) * (TILE + ROW_PAD_BF16))
     return 2 * 4 * (2 * positions + kb - 1) * (TILE + ROW_PAD)
 
 
@@ -89,19 +105,20 @@ def model_blocks_per_sm(kb: int, smem: int) -> int:
 
 
 def launch_plan(rows: int, nb: int, ci: int, co: int, kb: int, sm_count: int,
-                blocks_per_sm: Optional[Callable[[int], int]] = None) -> Plan:
+                blocks_per_sm: Optional[Callable[[int], int]] = None,
+                dtype=torch.float32) -> Plan:
     """The stage (`stage_rows_for`) and the row splits, at least one stage
     of rows each, whose blocks best fill whole waves of sm_count *
     blocks_per_sm(smem) resident blocks (`model_blocks_per_sm` when not
-    given)."""
-    stage_rows = stage_rows_for(nb, kb)
-    smem = smem_bytes(stage_rows, nb, kb)
+    given), for the `dtype` instance."""
+    stage_rows = stage_rows_for(nb, kb, dtype)
+    smem = smem_bytes(stage_rows, nb, kb, dtype)
     if smem > SMEM_BYTES:
         raise ValueError(f"blocked_dw: NB={nb}, KB={kb} needs {smem} B of shared memory per block")
     per_sm = blocks_per_sm(smem) if blocks_per_sm else model_blocks_per_sm(kb, smem)
     if per_sm < 1:
         raise ValueError(f"blocked_dw: no block of {smem} B of shared memory fits an SM")
-    tiles = -(-ci // TILE) * -(-co // TILE)
+    tiles = -(-ci // TILE) * -(-co // tile_co(dtype))
     slots = sm_count * per_sm
     stages = -(-rows // stage_rows)
 
@@ -144,11 +161,12 @@ def load_library() -> ctypes.CDLL:
         lib.blocked_dw_forward.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.blocked_dw_blocks_per_sm.restype = ctypes.c_int
         lib.blocked_dw_blocks_per_sm.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ]
         lib.blocked_dw_error_string.restype = ctypes.c_char_p
         lib.blocked_dw_error_string.argtypes = [ctypes.c_int]
@@ -161,17 +179,18 @@ def _check(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"blocked_dw {what} failed: {lib.blocked_dw_error_string(rc).decode()} ({rc})")
 
 
-def card_blocks_per_sm(kb: int, device: torch.device) -> Callable[[int], int]:
-    """blocks_per_sm(smem) of the KB instance on `device`, from the CUDA
-    occupancy calculator (registers and shared memory), cached."""
+def card_blocks_per_sm(kb: int, device: torch.device, dtype=torch.float32) -> Callable[[int], int]:
+    """blocks_per_sm(smem) of the KB instance of `dtype` on `device`, from
+    the CUDA occupancy calculator (registers and shared memory), cached."""
     lib = load_library()
+    bf16 = int(dtype == torch.bfloat16)
 
     def blocks(smem: int) -> int:
-        key = (device.index, kb, smem)
+        key = (device.index, kb, smem, bf16)
         if key not in _occupancy:
             n = ctypes.c_int(0)
             with torch.cuda.device(device):
-                rc = lib.blocked_dw_blocks_per_sm(kb, smem, ctypes.byref(n))
+                rc = lib.blocked_dw_blocks_per_sm(kb, smem, bf16, ctypes.byref(n))
             _check(lib, rc, "occupancy query")
             _occupancy[key] = n.value
         return _occupancy[key]
@@ -180,17 +199,18 @@ def card_blocks_per_sm(kb: int, device: torch.device) -> Callable[[int], int]:
 
 
 def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Tensor:
-    """dW of one blocked freq-conv: z [B, T, NB, Ci], dy [B, T, NB, Co] ->
-    [1, KB, Ci, Co] float32.
+    """dW of one blocked freq-conv: z [B, T, NB, Ci], dy [B, T, NB, Co],
+    both float32 or both bfloat16 -> [1, KB, Ci, Co] float32.
 
-    CPU tensors run `blocked_dw_plain`.  CUDA tensors launch the CUDA
-    kernel or raise; they never fall back to the plain version."""
+    CPU tensors run `blocked_dw_plain`.  CUDA tensors launch the kernel
+    instance of their dtype or raise; they never fall back to the plain
+    version."""
     if z.device.type == "cpu" and dy.device.type == "cpu":
         return blocked_dw_plain(z, dy, kb, dc)
     if z.device.type != "cuda" or dy.device != z.device:
         raise ValueError(f"blocked_dw runs on cpu or cuda tensors, got {z.device} and {dy.device}")
-    if z.dtype != torch.float32 or dy.dtype != torch.float32:
-        raise ValueError("blocked_dw takes float32 tensors")
+    if z.dtype not in K_STEP or dy.dtype != z.dtype:
+        raise ValueError(f"blocked_dw takes two float32 or two bfloat16 tensors, got {z.dtype} and {dy.dtype}")
     if not (z.is_contiguous() and dy.is_contiguous()):
         raise ValueError("blocked_dw takes contiguous [B, T, NB, C] tensors")
     if z.dim() != 4 or dy.dim() != 4 or z.shape[:3] != dy.shape[:3]:
@@ -204,8 +224,10 @@ def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Ten
         raise ValueError(f"blocked_dw got an empty tensor {tuple(z.shape)}, {tuple(dy.shape)}")
     sm_count = torch.cuda.get_device_properties(z.device).multi_processor_count
     lib = load_library()
-    plan = launch_plan(rows, nb, ci, co, kb, sm_count, card_blocks_per_sm(kb, z.device))
-    global launches
+    plan = launch_plan(rows, nb, ci, co, kb, sm_count, card_blocks_per_sm(kb, z.device, z.dtype),
+                       z.dtype)
+    bf16 = z.dtype == torch.bfloat16
+    global launches, launches_bf16
     out = torch.empty(1, kb, ci, co, dtype=torch.float32, device=z.device)
     part = out if plan.splits == 1 else torch.empty(
         plan.splits, kb, ci, co, dtype=torch.float32, device=z.device
@@ -213,11 +235,14 @@ def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Ten
     with torch.cuda.device(z.device):
         rc = lib.blocked_dw_forward(
             z.data_ptr(), dy.data_ptr(), out.data_ptr(), part.data_ptr(),
-            rows, nb, ci, co, kb, dc, plan.rows_per_split, plan.splits, plan.stage_rows,
+            rows, nb, ci, co, kb, dc, plan.rows_per_split, plan.splits, plan.stage_rows, int(bf16),
             torch.cuda.current_stream(z.device).cuda_stream,
         )
     _check(lib, rc, "launch")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -233,7 +258,9 @@ def conv_nhwc(z: torch.Tensor, w_hwio: torch.Tensor, pads) -> torch.Tensor:
 class BlockedFreqConv(torch.autograd.Function):
     """Inner blocked freq-conv ([1, KB] kernel, NB padding (dc, KB-1-dc))
     with a custom backward: dX is the mirrored transposed conv (what
-    autograd of the conv computes), dW is `blocked_dw`."""
+    autograd of the conv computes), dW is `blocked_dw`, returned in wb's
+    dtype (`_freq_conv_bwd`): under bf16 the float32 dW is rounded to bf16
+    here, and the cast that made wb lifts it back to float32."""
 
     @staticmethod
     def forward(ctx, z, wb, dc: int):

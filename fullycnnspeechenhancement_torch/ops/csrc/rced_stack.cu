@@ -77,6 +77,27 @@
 //   0.06 ms of a request that waits on the host, so frames are not split
 //   further.
 //
+// The bf16 operand mode (the JAX kernel's dtype="bfloat16": weights and
+// matmul operands in bf16, slabs, biases and sums in float32) is the same
+// kernel with another layer body, conv_layer_bf16:
+// - mma.sync.m16n8k16 with bf16 operands and float32 accumulators, one
+//   product per tile and no split.  A bf16 x bf16 product is exact in
+//   float32, so the result differs from the plain version only in the
+//   order of its float32 sums.
+// - The weights are rounded to bf16 on the host and stored in fragment
+//   order, 8 bytes a lane of a (k16, n8) tile.
+// - Activations stay float32 in shared memory, as the JAX kernel keeps its
+//   slabs float32: the skip, the residual and the next layer's bias and
+//   ReLU read unrounded values.  Each A value is rounded to bf16 (to
+//   nearest even, as torch's cast) when its fragment is loaded.
+// - Within a k16 chunk, mma's k = 2t, 2t + 1, 2t + 8 and 2t + 9 stand for
+//   the chunk's k = t, t + 4, t + 8 and t + 12 (the packing on the host
+//   follows), so each of a lane's four A loads reads four consecutive k,
+//   and the bank argument of the float32 body holds unchanged.
+// The bound of this mode at V2 64 x 8 s: the same 2.3781e11 FLOP at the
+// data sheet's 989 TFLOP/s dense bf16 rate, 0.240 ms, against 0.1 ms of
+// device memory.
+//
 // Layout: x [B, c_in, T, 129] and y [B, c_out, T, 129], float32, NCHW.  The
 // per-layer plan (chunks, n tiles, cout, shared-memory offsets of input,
 // output, skip and add rows, ReLU, weight and offset-table positions) is
@@ -118,6 +139,49 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// The epilogue in the reference's order: bias, pre-ReLU skip, ReLU,
+// residual.  C element e of a tile is bin m0 + g (+ 8 for e >= 2) and
+// channel n0 + 2t + (e & 1); bins past 128 and channels past cout are
+// dropped.
+template <int NT>
+__device__ __forceinline__ void store_layer(const float (&acc)[NT][4], float* out,
+                                            const float* skip, const float* add, bool relu,
+                                            const float* __restrict__ bias, int cout, int warp,
+                                            int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = warp * 16 + g + (e >> 1) * 8;
+      const int co = n * 8 + 2 * t + (e & 1);
+      if (m < kBins && co < cout) {
+        const int o = co * kRow + kHalo + m;
+        float y = acc[n][e] + __ldg(bias + co);
+        if (skip) y += skip[o];
+        if (relu) y = fmaxf(y, 0.f);
+        if (add) y += add[o];
+        out[o] = y;
+      }
+    }
 }
 
 // One layer of one frame for this warp's m16 tile and all NT n tiles.
@@ -164,26 +228,50 @@ __device__ __forceinline__ void conv_layer(const float* in, float* out, const fl
     for (int n = 0; n < NT; ++n)
       mma_tf32(acc[n], ab, __float_as_uint(b[n].x), __float_as_uint(b[n].y));
   }
-  // Epilogue in the reference's order: bias, pre-ReLU skip, ReLU, residual.
-  // C element e of a tile is bin m0 + g (+ 8 for e >= 2) and channel
-  // n0 + 2t + (e & 1); bins past 128 and channels past cout are dropped.
+  store_layer<NT>(acc, out, skip, add, relu, bias, cout, warp, lane);
+}
+
+// The bf16 operand mode of conv_layer: `wf` holds the layer's B fragments
+// in bf16, [chunk][NT][lane] pairs of 32-bit words, word 0 = (k t, k t + 4)
+// and word 1 = (k t + 8, k t + 12) of column g, low half first; `koff` the
+// chunks * 16 A offsets.
+template <int NT>
+__device__ __forceinline__ void conv_layer_bf16(const float* in, float* out, const float* skip,
+                                                const float* add, bool relu,
+                                                const uint2* __restrict__ wf,
+                                                const float* __restrict__ bias,
+                                                const int* __restrict__ koff, int chunks,
+                                                int cout, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = warp * 16 + g + (e >> 1) * 8;
-      const int co = n * 8 + 2 * t + (e & 1);
-      if (m < kBins && co < cout) {
-        const int o = co * kRow + kHalo + m;
-        float y = acc[n][e] + __ldg(bias + co);
-        if (skip) y += skip[o];
-        if (relu) y = fmaxf(y, 0.f);
-        if (add) y += add[o];
-        out[o] = y;
-      }
-    }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float* a = in + warp * 16 + g;
+#pragma unroll 2
+  for (int c = 0; c < chunks; ++c) {
+    // this lane's k are k0 + t + 4s, s = 0..3: mma's k 2t, 2t + 1, 2t + 8, 2t + 9
+    const int o0 = __ldg(koff + 16 * c + t);
+    const int o1 = __ldg(koff + 16 * c + t + 4);
+    const int o2 = __ldg(koff + 16 * c + t + 8);
+    const int o3 = __ldg(koff + 16 * c + t + 12);
+    uint32_t af[4];
+    af[0] = pack_bf16(a[o0], a[o1]);          // row g
+    af[1] = pack_bf16(a[o0 + 8], a[o1 + 8]);  // row g + 8
+    af[2] = pack_bf16(a[o2], a[o3]);
+    af[3] = pack_bf16(a[o2 + 8], a[o3 + 8]);
+    uint2 b[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) b[n] = __ldg(wf + (c * NT + n) * 32 + lane);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_bf16(acc[n], af, b[n].x, b[n].y);
+  }
+  store_layer<NT>(acc, out, skip, add, relu, bias, cout, warp, lane);
 }
 
+// BF16 selects the layer body: conv_layer (3xTF32) or conv_layer_bf16.
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads, 2)
 rced_stack_kernel(const float* __restrict__ x, float* __restrict__ y,
                   const float* __restrict__ weights, const int* __restrict__ koffs,
@@ -215,20 +303,35 @@ rced_stack_kernel(const float* __restrict__ x, float* __restrict__ y,
     float* out = sm + r[kOutOff];
     const float* skip = r[kSkipOff] >= 0 ? sm + r[kSkipOff] : nullptr;
     const float* add = r[kAddOff] >= 0 ? sm + r[kAddOff] : nullptr;
-    const float4* wf = reinterpret_cast<const float4*>(weights + r[kWOff]);
     const int nt = r[kNTiles];
-    const float* bias = weights + r[kWOff] + r[kChunks] * nt * 32 * 4;
+    const int words = BF16 ? 64 : 128;  // 32-bit words of one tile's fragments
+    const float* bias = weights + r[kWOff] + r[kChunks] * nt * words;
     const int* koff = koffs + r[kKOff];
     const bool relu = r[kRelu] != 0;
-    switch (nt) {
+    if constexpr (BF16) {
+      const uint2* wf = reinterpret_cast<const uint2*>(weights + r[kWOff]);
+      switch (nt) {
+#define RCED_CASE(N)                                                                          \
+  case N:                                                                                     \
+    conv_layer_bf16<N>(in, out, skip, add, relu, wf, bias, koff, r[kChunks], r[kCout], warp,  \
+                       lane);                                                                 \
+    break;
+        RCED_CASE(1) RCED_CASE(2) RCED_CASE(3) RCED_CASE(4)
+#undef RCED_CASE
+        default: break;  // rejected on the host
+      }
+    } else {
+      const float4* wf = reinterpret_cast<const float4*>(weights + r[kWOff]);
+      switch (nt) {
 #define RCED_CASE(N)                                                                     \
   case N:                                                                                \
     conv_layer<N>(in, out, skip, add, relu, wf, bias, koff, r[kChunks], r[kCout], warp,  \
                   lane);                                                                 \
     break;
-      RCED_CASE(1) RCED_CASE(2) RCED_CASE(3) RCED_CASE(4)
+        RCED_CASE(1) RCED_CASE(2) RCED_CASE(3) RCED_CASE(4)
 #undef RCED_CASE
-      default: break;  // rejected on the host
+        default: break;  // rejected on the host
+      }
     }
     __syncthreads();
   }
@@ -241,31 +344,56 @@ rced_stack_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
+template <bool BF16>
 cudaError_t set_smem(int smem) {
-  return cudaFuncSetAttribute(rced_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
+  return cudaFuncSetAttribute(rced_stack_kernel<BF16>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <bool BF16>
+int occupancy(int smem_bytes, int* blocks) {
+  cudaError_t err = set_smem<BF16>(smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, rced_stack_kernel<BF16>, kThreads, static_cast<size_t>(smem_bytes)));
+}
+
+template <bool BF16>
+int launch(const float* x, float* y, const float* weights, const int* koffs, const Plan& plan,
+           int n_layers, int batch, int frames, int c_in, int c_out, int in_off, int out_off,
+           int smem_floats, void* stream) {
+  const int smem = static_cast<int>(sizeof(float)) * smem_floats;
+  cudaError_t err = set_smem<BF16>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(batch) * frames;
+  if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  rced_stack_kernel<BF16><<<static_cast<int>(total), kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, y, weights, koffs, plan, n_layers, frames, c_in, c_out, in_off, out_off, smem_floats);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Blocks one SM holds at `smem_bytes` of dynamic shared memory each, into
-// *blocks.  Returns the CUDA error code (0 on success).
-extern "C" int rced_stack_blocks_per_sm(int smem_bytes, int* blocks) {
-  cudaError_t err = set_smem(smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, rced_stack_kernel, kThreads, static_cast<size_t>(smem_bytes)));
+// Blocks of the float32 (bf16 = 0) or bf16 (bf16 = 1) instance one SM
+// holds at `smem_bytes` of dynamic shared memory each, into *blocks.
+// Returns the CUDA error code (0 on success).
+extern "C" int rced_stack_blocks_per_sm(int smem_bytes, int bf16, int* blocks) {
+  return bf16 ? occupancy<true>(smem_bytes, blocks) : occupancy<false>(smem_bytes, blocks);
 }
 
 // Launches the stack on `stream` for `batch` x `frames` frames, one block
-// per frame.  `plan_rows` is a host array of n_layers x 10 ints
-// (see Field).  `weights` holds each layer's B fragments and then its
-// n_tiles * 8 biases; `koffs` each layer's chunks * 8 A offsets.  Returns
-// the CUDA error code of the launch (0 on success); never synchronises.
+// per frame, in 3xTF32 (bf16 = 0) or with bf16 operands (bf16 = 1).
+// `plan_rows` is a host array of n_layers x 10 ints (see Field).
+// `weights` holds each layer's B fragments (float32 or bf16, see
+// conv_layer and conv_layer_bf16) and then its n_tiles * 8 float32 biases;
+// `koffs` each layer's chunks * 8 (float32) or chunks * 16 (bf16) A
+// offsets.  Returns the CUDA error code of the launch (0 on success);
+// never synchronises.
 extern "C" int rced_stack_forward(const float* x, float* y, const float* weights,
                                   const int* koffs, const int* plan_rows, int n_layers, int batch,
                                   int frames, int c_in, int c_out, int in_off, int out_off,
-                                  int smem_floats, void* stream) {
+                                  int smem_floats, int bf16, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || batch < 1 || frames < 1 || smem_floats < 4 ||
       smem_floats % 4 != 0 || reinterpret_cast<uintptr_t>(weights) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -275,17 +403,13 @@ extern "C" int rced_stack_forward(const float* x, float* y, const float* weights
   for (int l = 0; l < n_layers; ++l) {
     const int* r = plan.rec[l];
     if (r[kChunks] < 1 || r[kNTiles] < 1 || r[kNTiles] > kMaxNTiles || r[kCout] < 1 ||
-        r[kCout] > 8 * r[kNTiles] || r[kWOff] % 4 != 0)
+        r[kCout] > 8 * r[kNTiles] || r[kWOff] % (bf16 ? 2 : 4) != 0)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = static_cast<int>(sizeof(float)) * smem_floats;
-  cudaError_t err = set_smem(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(batch) * frames;
-  if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  rced_stack_kernel<<<static_cast<int>(total), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, y, weights, koffs, plan, n_layers, frames, c_in, c_out, in_off, out_off, smem_floats);
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? launch<true>(x, y, weights, koffs, plan, n_layers, batch, frames, c_in, c_out,
+                             in_off, out_off, smem_floats, stream)
+              : launch<false>(x, y, weights, koffs, plan, n_layers, batch, frames, c_in, c_out,
+                              in_off, out_off, smem_floats, stream);
 }
 
 extern "C" const char* rced_stack_error_string(int code) {

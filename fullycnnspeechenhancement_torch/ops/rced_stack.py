@@ -23,6 +23,12 @@ FIRST conv looks across time; every later layer but the last is a per-frame
     shared-memory offset (`tap_offsets`);
   * the final (1, 129) projection runs as a cuDNN conv.
 
+`dtype="bfloat16"` is the JAX kernel's bf16 operand mode: the folded
+weights are packed in bf16 (`pack_fragments_bf16`) and each layer's input
+slab is rounded to bf16 where it meets them; the products are exact and
+summed in float32, and the slabs, biases, skips and residuals stay
+float32.  Layer 1 and the last projection stay float32 convs, as in JAX.
+
 `stack_forward` is the kernel's wrapper: on a CPU tensor it runs
 `stack_forward_plain`, the same arithmetic in plain torch; on a CUDA tensor
 it launches the kernel (building it on first use) or raises.  `launches`
@@ -54,6 +60,8 @@ M_PAD = 16 * M_TILES
 THREADS = 32 * M_TILES
 N_TILE = 8  # output channels per n8 tile
 K_CHUNK = 8  # K per mma (m16n8k8)
+K_CHUNK_BF16 = 16  # K per mma of the bf16 mode (m16n8k16)
+DTYPES = ("float32", "bfloat16")
 MAX_KW = 13
 MAX_LAYERS = 16
 MAX_COUT = 32  # four n8 tiles
@@ -65,8 +73,10 @@ SMEM_SLACK = 2 * HALO + M_PAD - ROW
 TF32_MASK = -8192  # 0xffffe000 as int32: clears the 13 low mantissa bits
 INPUT = "__input__"
 
-# Kernel launches since the count was last set to 0.
+# Kernel launches since the counts were last set to 0: the 3xTF32
+# instance and the bf16 one.
 launches = 0
+launches_bf16 = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -100,11 +110,12 @@ class InnerLayer:
     add_from: Optional[str]
     use_act: bool
     w_off: int  # floats into PackedStack.weights: B fragments, then biases
-    k_off: int  # ints into PackedStack.koffs: chunks * 8 A offsets
+    k_off: int  # ints into PackedStack.koffs: chunks * k_chunk A offsets
     in_row: int = -1
     out_row: int = -1
     skip_row: int = -1
     add_row: int = -1
+    k_chunk: int = K_CHUNK  # K_CHUNK_BF16 in the bf16 mode
 
     @property
     def k(self) -> int:
@@ -112,7 +123,7 @@ class InnerLayer:
 
     @property
     def chunks(self) -> int:
-        return -(-self.k // K_CHUNK)
+        return -(-self.k // self.k_chunk)
 
     @property
     def n_tiles(self) -> int:
@@ -120,7 +131,10 @@ class InnerLayer:
 
     @property
     def b_off(self) -> int:
-        return self.w_off + self.chunks * self.n_tiles * 32 * 4
+        # a lane's fragment of one tile: 4 float32 words (3xTF32), or 2
+        # words of two bf16 each
+        words = 4 if self.k_chunk == K_CHUNK else 2
+        return self.w_off + self.chunks * self.n_tiles * 32 * words
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -131,12 +145,13 @@ class PackedStack:
     last: Tuple[ConvSpec, torch.Tensor, torch.Tensor]  # final projection
     layers: Tuple[InnerLayer, ...]
     folded: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # inner (w [cin, kw, cout], b)
-    weights: torch.Tensor  # the kernel's B fragments and biases, float32
+    weights: torch.Tensor  # the kernel's B fragments and biases, float32 words
     koffs: torch.Tensor  # the kernel's A offsets, int32
     plan: np.ndarray  # [n_layers, 10] int32, the kernel's layer table
     in_row: int
     out_row: int
     smem_rows: int
+    dtype: str = "float32"  # the operand mode, one of DTYPES
 
     @property
     def c_in(self) -> int:
@@ -186,23 +201,23 @@ def _allocate_rows(layers, c_in):
     return where, used
 
 
-def tap_offsets(cin: int, kw: int) -> np.ndarray:
-    """The kernel's A offsets of one layer, [chunks * 8] int32: k = j * cin
-    + ci (tap-outer, channel-inner) reads channel ci's row at tap j, so
-    A[m, k] = in[offset[k] + m] with offset[k] = ci * ROW + HALO - lo + j;
-    the padded k past cin * kw repeat the last offset (their weights are
-    zero, and a repeated address is a broadcast, not a bank conflict)."""
+def tap_offsets(cin: int, kw: int, k_chunk: int = K_CHUNK) -> np.ndarray:
+    """The kernel's A offsets of one layer, [chunks * k_chunk] int32: k =
+    j * cin + ci (tap-outer, channel-inner) reads channel ci's row at tap
+    j, so A[m, k] = in[offset[k] + m] with offset[k] = ci * ROW + HALO - lo
+    + j; the padded k past cin * kw repeat the last offset (their weights
+    are zero, and a repeated address is a broadcast, not a bank conflict)."""
     lo = (kw - 1) // 2
-    k = np.minimum(np.arange(-(-cin * kw // K_CHUNK) * K_CHUNK), cin * kw - 1)
+    k = np.minimum(np.arange(-(-cin * kw // k_chunk) * k_chunk), cin * kw - 1)
     j, ci = np.divmod(k, cin)
     return (ci * ROW + HALO - lo + j).astype(np.int32)
 
 
-def gemm_weights(w: torch.Tensor, chunks: int, n_tiles: int) -> torch.Tensor:
-    """w [cin, kw, cout] -> the layer's B [chunks * 8, n_tiles * 8]: row
-    j * cin + ci holds w[ci, j], zeros past K and cout."""
+def gemm_weights(w: torch.Tensor, chunks: int, n_tiles: int, k_chunk: int = K_CHUNK) -> torch.Tensor:
+    """w [cin, kw, cout] -> the layer's B [chunks * k_chunk, n_tiles * 8]:
+    row j * cin + ci holds w[ci, j], zeros past K and cout."""
     cin, kw, cout = w.shape
-    b = torch.zeros(chunks * K_CHUNK, n_tiles * N_TILE, dtype=torch.float32, device=w.device)
+    b = torch.zeros(chunks * k_chunk, n_tiles * N_TILE, dtype=torch.float32, device=w.device)
     b[: cin * kw, :cout] = w.permute(1, 0, 2).reshape(cin * kw, cout)
     return b
 
@@ -236,12 +251,36 @@ def unpack_fragments(frag: torch.Tensor, chunks: int, n_tiles: int):
     return parts[0], parts[1]
 
 
-def pack_inference_stack(model: ModelDef, params, bn_state) -> PackedStack:
-    """Fold BN and pack the inner layers' weights and plan for the kernel.
+def pack_fragments_bf16(b: torch.Tensor) -> torch.Tensor:
+    """B [chunks * 16, n_tiles * 8] -> its bf16 fragments for m16n8k16,
+    rounded to nearest even and stored two to a float32 word, flat
+    [chunks, n_tiles, 32 lanes, 2 words]: lane 4g + t of tile (c, n) holds
+    B[16c + t + 4h + 8w, 8n + g] in half h of word w, so its fragment is
+    one 8-byte load and mma's k 2t, 2t + 1, 2t + 8, 2t + 9 stand for the
+    chunk's k t, t + 4, t + 8, t + 12."""
+    kp, np_ = b.shape
+    parts = b.contiguous().to(torch.bfloat16).view(
+        kp // K_CHUNK_BF16, 2, 2, 4, np_ // N_TILE, N_TILE)  # [c, w, h, t, n, g]
+    return parts.permute(0, 4, 5, 3, 1, 2).reshape(-1).contiguous().view(torch.float32)
+
+
+def unpack_fragments_bf16(frag: torch.Tensor, chunks: int, n_tiles: int) -> torch.Tensor:
+    """Inverse of `pack_fragments_bf16`: -> B [chunks * 16, n_tiles * 8],
+    bfloat16."""
+    parts = frag.contiguous().view(torch.bfloat16).view(chunks, n_tiles, N_TILE, 4, 2, 2)
+    return parts.permute(0, 4, 5, 3, 1, 2).reshape(chunks * K_CHUNK_BF16, n_tiles * N_TILE)
+
+
+def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float32") -> PackedStack:
+    """Fold BN and pack the inner layers' weights and plan for the kernel,
+    in 3xTF32 fragments (`dtype="float32"`) or bf16 ones ("bfloat16").
 
     Inner layers must be (1, kw <= 13) convs over 129 bins with at most 32
     output channels; at most 16 of them, whose live taps fit one block's
     shared memory."""
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype!r}: the stack kernel takes one of {DTYPES}")
+    k_chunk = K_CHUNK if dtype == "float32" else K_CHUNK_BF16
     folded = fold_bn_inference(model, params, bn_state)
     first, last, inner = folded[0], folded[-1], folded[1:-1]
     first_name = first[0].name
@@ -263,14 +302,16 @@ def pack_inference_stack(model: ModelDef, params, bn_state) -> PackedStack:
 
         lay = InnerLayer(
             spec.name, kw, cin, cout, remap(spec.skip_from), remap(spec.add_from),
-            spec.use_act, w_off, k_off,
+            spec.use_act, w_off, k_off, k_chunk=k_chunk,
         )
         w_cko = w[:, :, 0, :].permute(1, 2, 0).contiguous()  # [cin, kw, cout]
         plain.append((w_cko, b))
         bias = torch.zeros(lay.n_tiles * N_TILE, dtype=torch.float32, device=w.device)
         bias[:cout] = b
-        chunks += [pack_fragments(gemm_weights(w_cko, lay.chunks, lay.n_tiles)), bias]
-        koffs.append(tap_offsets(cin, kw))
+        gemm = gemm_weights(w_cko, lay.chunks, lay.n_tiles, k_chunk)
+        frag = pack_fragments(gemm) if dtype == "float32" else pack_fragments_bf16(gemm)
+        chunks += [frag, bias]
+        koffs.append(tap_offsets(cin, kw, k_chunk))
         layers.append(lay)
         w_off = lay.b_off + bias.numel()
         k_off += koffs[-1].size
@@ -319,19 +360,30 @@ def pack_inference_stack(model: ModelDef, params, bn_state) -> PackedStack:
         in_row=rows[INPUT],
         out_row=placed[-1].out_row,
         smem_rows=used,
+        dtype=dtype,
     )
+
+
+def _as_operand(x: torch.Tensor, dtype: str) -> torch.Tensor:
+    """x as a matmul operand of the mode: itself in float32, rounded to
+    bf16 (and held in float32) in the bf16 mode."""
+    return x if dtype == "float32" else x.to(torch.bfloat16).to(x.dtype)
 
 
 def stack_forward_plain(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
     """Plain torch version of the kernel: [B, c_in, T, 129] -> [B, c_out,
     T, 129].  The same folded weights and per-layer function: for each
     layer, kw shifted copies of the zero-padded rows contracted with the
-    weights in float32, then bias, skip, ReLU, residual."""
+    weights in float32, then bias, skip, ReLU, residual.  In the bf16 mode
+    the weights and each layer's input are rounded to bf16 before the
+    contraction (so every product is exact), and everything else stays
+    float32, as in the kernel."""
     B, C, T, Fd = x.shape
     h = x.permute(0, 2, 1, 3).reshape(B * T, C, Fd)
     taps = {INPUT: h}
     for lay, (w, bias) in zip(packed.layers, packed.folded):
-        cols = F.pad(h, ((lay.kw - 1) // 2, lay.kw // 2)).unfold(2, lay.kw, 1)
+        w = _as_operand(w, packed.dtype)
+        cols = F.pad(_as_operand(h, packed.dtype), ((lay.kw - 1) // 2, lay.kw // 2)).unfold(2, lay.kw, 1)
         y = torch.einsum("ncfk,cko->nof", cols, w)
         y = y + bias[:, None]
         if lay.skip_from is not None:
@@ -348,8 +400,9 @@ def stack_forward_plain(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
 class LaunchPlan(NamedTuple):
     """How `stack_forward` launches the kernel: one block per frame, of
     `threads` threads and `smem_bytes` of shared memory, `blocks_per_sm` of
-    them resident on an SM; its m16n8k8 tiles compute
-    `padded_product_ratio` times the products the layers need."""
+    them resident on an SM; its mma tiles (m16n8k8 in 3xTF32, m16n8k16 in
+    bf16) compute `padded_product_ratio` times the products the layers
+    need."""
 
     threads: int
     smem_bytes: int
@@ -359,10 +412,10 @@ class LaunchPlan(NamedTuple):
 
 
 def padded_product_ratio(packed: PackedStack) -> float:
-    """Products the kernel computes (bins padded to M_PAD, K to k8 chunks,
-    cout to n8 tiles) over the products the layers need (tap j meets
+    """Products the kernel computes (bins padded to M_PAD, K to the mode's
+    k8 or k16 chunks, cout to n8 tiles) over the products the layers need (tap j meets
     F_DIM - |j - lo| bins; the rest fall on the zero halo)."""
-    done = sum(M_PAD * lay.chunks * K_CHUNK * lay.n_tiles * N_TILE for lay in packed.layers)
+    done = sum(M_PAD * lay.chunks * lay.k_chunk * lay.n_tiles * N_TILE for lay in packed.layers)
     need = 0
     for lay in packed.layers:
         lo = (lay.kw - 1) // 2
@@ -394,10 +447,12 @@ def load_library() -> ctypes.CDLL:
         lib.rced_stack_forward.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.rced_stack_blocks_per_sm.restype = ctypes.c_int
-        lib.rced_stack_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.rced_stack_blocks_per_sm.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ]
         lib.rced_stack_error_string.restype = ctypes.c_char_p
         lib.rced_stack_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -409,22 +464,25 @@ def _check(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"rced_stack {what} failed: {lib.rced_stack_error_string(rc).decode()} ({rc})")
 
 
-def card_blocks_per_sm(smem_bytes: int, device: torch.device) -> int:
-    """Blocks of the kernel one SM of `device` holds at `smem_bytes` each,
-    from the CUDA occupancy calculator (registers and shared memory)."""
+def card_blocks_per_sm(smem_bytes: int, device: torch.device, dtype: str = "float32") -> int:
+    """Blocks of the kernel's `dtype` instance one SM of `device` holds at
+    `smem_bytes` each, from the CUDA occupancy calculator (registers and
+    shared memory)."""
     lib = load_library()
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = lib.rced_stack_blocks_per_sm(smem_bytes, ctypes.byref(n))
+        rc = lib.rced_stack_blocks_per_sm(smem_bytes, int(dtype == "bfloat16"), ctypes.byref(n))
     _check(lib, rc, "occupancy query")
     return n.value
 
 
 def stack_forward(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
-    """The inner stack: [B, c_in, T, 129] float32 -> [B, c_out, T, 129].
+    """The inner stack: [B, c_in, T, 129] float32 -> [B, c_out, T, 129],
+    in the operand mode `packed` was packed for.
 
     A CPU tensor runs `stack_forward_plain`.  A CUDA tensor launches the
-    CUDA kernel or raises; it never falls back to the plain version."""
+    CUDA kernel of that mode or raises; it never falls back to the plain
+    version."""
     if x.device.type == "cpu":
         return stack_forward_plain(packed, x)
     if x.device.type != "cuda":
@@ -438,34 +496,43 @@ def stack_forward(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
         )
     if packed.weights.device != x.device or packed.koffs.device != x.device:
         raise ValueError(f"packed weights on {packed.weights.device}, input on {x.device}")
-    global launches
+    global launches, launches_bf16
+    bf16 = packed.dtype == "bfloat16"
     lib = load_library()
     out = torch.empty(B, packed.c_out, T, F_DIM, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.rced_stack_forward(
             x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(), packed.koffs.data_ptr(),
             packed.plan.ctypes.data, len(packed.layers), B, T, C, packed.c_out,
-            packed.in_row * ROW, packed.out_row * ROW, packed.smem_floats,
+            packed.in_row * ROW, packed.out_row * ROW, packed.smem_floats, int(bf16),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _check(lib, rc, "launch")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
 def fused_inference_forward(
     model: ModelDef, params, bn_state, mag: torch.Tensor,
-    packed: Optional[PackedStack] = None,
+    packed: Optional[PackedStack] = None, dtype: str = "float32",
 ) -> torch.Tensor:
     """[B, T, F] magnitude -> [B, T, F] enhanced magnitude, inference mode.
 
-    Equivalent to `model.apply(...)` in eval mode with BN folded.  Pass
-    `packed` (from `pack_inference_stack`) to skip folding and packing on
-    every call, as the inference engine does."""
+    Equivalent to `model.apply(...)` in eval mode with BN folded.  `dtype`
+    is the inner stack's operand mode, as in JAX: "bfloat16" runs its
+    products on bf16 weights and operands with float32 sums; layer 1 and
+    the last projection stay float32.  Pass `packed` (from
+    `pack_inference_stack`, in the same mode) to skip folding and packing
+    on every call, as the inference engine does."""
     if mag.shape[-1] != F_DIM:
         raise ValueError(f"the stack kernel is specialised for F={F_DIM}")
     if packed is None:
-        packed = pack_inference_stack(model, params, bn_state)
+        packed = pack_inference_stack(model, params, bn_state, dtype)
+    elif packed.dtype != dtype:
+        raise ValueError(f"packed for {packed.dtype}, called with dtype={dtype}")
     first_spec, w1, b1 = packed.first
     y1 = conv2d_same(mag[:, None], w1, b1)
     if first_spec.use_act:

@@ -18,8 +18,12 @@ the loss (`batch_max_frame_mask`).  `mask_loss=True` switches to the fully
 masked, frame-count-normalised loss with per-utterance BN masking (the
 documented corrected mode).
 
-Float32 only in this package so far: `compute_dtype=bfloat16` raises
-(ROADMAP.md, the bf16 training mode).
+`compute_dtype` (float32 or bfloat16) is the activations' dtype, as in
+the JAX package: the params, the BN state, the optimizer's moments and
+the STFT analysis stay float32; the model's input is cast to it and its
+prediction back to float32 before the loss, so the params receive float32
+gradients through the casts' backward.  The eval step's fused branch runs
+the float32 stack kernel whatever `compute_dtype` says, as JAX's does.
 """
 
 from __future__ import annotations
@@ -70,14 +74,15 @@ def _as_wav(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
     return x
 
 
-def _check_compute_dtype(config: Config) -> torch.dtype:
-    if config.model.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={config.model.compute_dtype}: the port trains in "
-            "float32 only; the bf16 training mode is queued in ROADMAP.md "
-            "(Queue 1 item 3, bf16 training)"
-        )
-    return torch.float32
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(config: Config) -> torch.dtype:
+    """The activations' dtype named by `model.compute_dtype`."""
+    name = config.model.compute_dtype
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={name}: one of {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
 
 
 def create_train_state(
@@ -152,7 +157,7 @@ def make_train_step(config: Config, model: ModelDef):
     schedule = noam_schedule(config.train.lr, config.train.warmup_steps)
     batch_size = config.train.batch_size
     mask_loss = config.train.mask_loss
-    compute_dtype = _check_compute_dtype(config)
+    compute_dtype = compute_dtype_of(config)
     forward = _model_forward(config, model)
 
     def train_step(state: TrainState, batch: Batch):
@@ -218,9 +223,10 @@ def make_eval_step(config: Config, model: ModelDef, is_training: bool = False):
     in-training validation runs BN in batch-stats mode over the batch-max
     region.  `is_training` selects which.  With `model.fused_inference`
     (and BN in inference mode) the inner layers run in the fused kernel
-    (ops/rced_stack.py)."""
+    (ops/rced_stack.py) in float32, whatever `compute_dtype` says (JAX's
+    `make_eval_step` calls its fused forward without a dtype too)."""
     ext = SpectrogramExtractor(config.dsp)
-    compute_dtype = _check_compute_dtype(config)
+    compute_dtype = compute_dtype_of(config)
     use_fused = config.model.fused_inference and not is_training
     forward = _model_forward(config, model)
 

@@ -25,14 +25,15 @@ PROBES = {p.name: (m, p) for m, p in all_probes()}
 
 def numpy_params(name, seed, centred_bn=False):
     """(params, bn_state) as the JAX package holds them (HWIO kernels), drawn
-    with numpy from the model's layer specs: Glorot-range kernels, and
+    with numpy from the layer specs of the model `name` names (or of the
+    ModelDef `name` is): Glorot-range kernels, and
     non-trivial biases, BN affine and BN statistics.  BN means are U(0, 1),
     or U(-0.5, 0.5) with `centred_bn`: the uncentred shift leaves most of
     V2's and all of V3's inner stack at 0 on inputs in [0, 1), while the
     centred one keeps every layer's ReLUs alive."""
     rng = np.random.default_rng(seed)
     params, bn, ch = {}, {}, 1
-    for spec in get_model(name).layers:
+    for spec in (get_model(name) if isinstance(name, str) else name).layers:
         kh, kw = spec.kernel
         lim = np.sqrt(6.0 / (kh * kw * (ch + spec.out_ch)))
         p = {
@@ -529,3 +530,179 @@ def test_freq_conv_raises_instead_of_falling_back(cuda_device, bad):
     with pytest.raises(ValueError):
         calls[bad]()
     assert (freq_conv.launches, freq_conv.stack_launches) == before
+
+
+# -- the bf16 operand modes ---------------------------------------------------
+
+# The bf16 stack: each layer rounds its float32 input to bf16.  Where two
+# correct computations of a layer differ in the last bit of a float32 sum
+# (another order of summation) and the value lies at a rounding boundary
+# of bf16, the next layer's operand differs by one bf16 ulp (2^-7 of it),
+# and the difference spreads through the later layers.  So a whole stack
+# is held to: the median difference at float32's level (1e-6 of max|ref|:
+# almost every operand agrees), and no difference past BF16_STACK_MAX of
+# max|ref| (a few operands one ulp off; tests/test_torch_bf16.py prints
+# up to 2.8e-3 of max between this package and JAX).  A single layer rounds only its input,
+# which both sides are given, and is held at float32's tolerance.
+BF16_STACK_MEDIAN = 1e-6
+BF16_STACK_MAX = 2.0**-6
+
+
+def assert_bf16_stack_close(got, ref):
+    """`got` within a bf16 stack's tolerance of `ref` (see BF16_STACK_*);
+    the median is taken over the elements where `ref` is not 0."""
+    got, ref = torch.as_tensor(got).double(), torch.as_tensor(ref).double()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    scale = ref.abs().max().item()
+    err = (got - ref).abs()
+    assert err.max().item() <= BF16_STACK_MAX * scale, (err.max().item(), scale)
+    assert err[ref != 0].median().item() <= BF16_STACK_MEDIAN * scale, (err[ref != 0].median().item(), scale)
+
+
+def one_layer_model(kw, cin, cout, link=None):
+    """A model with one inner (1, kw) layer between layer 1 (cin channels)
+    and the (1, 129) projection; `link` "skip" or "add" makes it read
+    layer 1 again (pre- or post-ReLU; needs cout == cin)."""
+    from fullycnnspeechenhancement_torch.models.rced import ConvSpec, ModelDef
+
+    return ModelDef(f"one_{kw}_{cin}_{cout}_{link}", (
+        ConvSpec("a", cin, (8, 5)),
+        ConvSpec("b", cout, (1, kw), skip_from="a" if link == "skip" else None,
+                 add_from="a" if link == "add" else None),
+        ConvSpec("c", 1, (1, 129), use_norm=False, use_act=False),
+    ))
+
+
+# (kw, cin, cout, link): every n8 tile count, kw at 1, 5 and the kernel's
+# 13, K from 1 chunk of 16 (kw 1, cin 8) to 16, and the skip and the add
+ONE_LAYER_CASES = [(1, 8, 8, None), (5, 10, 12, None), (13, 19, 32, None), (7, 25, 23, None),
+                   (9, 20, 20, "skip"), (9, 18, 18, "add"), (11, 12, 3, None)]
+
+
+def _bf16_packed(model, params, bn, device):
+    p, s = params_from_numpy(params, bn, device=device)
+    return rced_stack.pack_inference_stack(model, p, s, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ONE_LAYER_CASES, ids=lambda c: "_".join(map(str, c)))
+def test_kernel_bf16_one_layer_matches_plain_on_cuda(cuda_device, case):
+    """One layer: the kernel and the plain bf16 mode round the same input
+    and weights, products are exact, sums float32 in another order:
+    rtol 1e-4, atol 1e-5 * max|plain|."""
+    model = one_layer_model(*case)
+    packed = _bf16_packed(model, *numpy_params(model, 3, centred_bn=True), cuda_device)
+    x = torch.rand(2, packed.c_in, 45, 129, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    before = (rced_stack.launches, rced_stack.launches_bf16)
+    got = rced_stack.stack_forward(packed, x)
+    torch.cuda.synchronize()
+    assert (rced_stack.launches, rced_stack.launches_bf16) == (before[0], before[1] + 1)
+    ref = rced_stack.stack_forward_plain(packed, x)
+    assert_live(ref)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,B,T", [(n, B, T) for n in NAMES for B, T in STACK_SHAPES] + [("FullyCNNV2", 4, 499)]
+)
+def test_kernel_bf16_matches_plain_on_cuda(cuda_device, name, B, T):
+    """Whole stacks in the bf16 mode against the plain bf16 mode (see
+    BF16_STACK_*), and within 0.05 * max of the float32 stack (the JAX
+    package's bound for its bf16 mode, tests/test_pallas.py)."""
+    params, bn = params_from_numpy(*numpy_params(name, 1, centred_bn=True), device=cuda_device)
+    packed = rced_stack.pack_inference_stack(get_model(name), params, bn, "bfloat16")
+    x = torch.rand(B, packed.c_in, T, 129, generator=torch.Generator().manual_seed(T)).to(cuda_device)
+    before = rced_stack.launches_bf16
+    got = rced_stack.stack_forward(packed, x)
+    torch.cuda.synchronize()
+    assert rced_stack.launches_bf16 == before + 1
+    ref = rced_stack.stack_forward_plain(packed, x)
+    assert_live(ref)
+    assert_bf16_stack_close(got, ref)
+    f32 = rced_stack.stack_forward_plain(_packed(name, 1, cuda_device), x)
+    assert (got - f32).abs().max() <= 0.05 * f32.abs().max()
+
+
+@pytest.mark.cuda
+def test_kernel_bf16_repeats_and_raises_instead_of_falling_back(cuda_device):
+    """Two launches agree bit for bit; a bf16 input, or a float32 pack
+    called in the bf16 mode, raises and launches nothing."""
+    params, bn = params_from_numpy(*numpy_params("FullyCNNV2", 2, centred_bn=True), device=cuda_device)
+    model = get_model("FullyCNNV2")
+    packed = rced_stack.pack_inference_stack(model, params, bn, "bfloat16")
+    x = torch.rand(3, packed.c_in, 97, 129, generator=torch.Generator().manual_seed(9)).to(cuda_device)
+    assert torch.equal(rced_stack.stack_forward(packed, x), rced_stack.stack_forward(packed, x))
+    before = (rced_stack.launches, rced_stack.launches_bf16)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        rced_stack.stack_forward(packed, x.to(torch.bfloat16))
+    mag = torch.rand(1, 20, 129, device=cuda_device)
+    with pytest.raises(ValueError, match="packed for float32"):
+        rced_stack.fused_inference_forward(model, params, bn, mag, packed=_packed("FullyCNNV2", 2, cuda_device),
+                                           dtype="bfloat16")
+    assert (rced_stack.launches, rced_stack.launches_bf16) == before
+
+
+def _dw_inputs_bf16(B, T, ci, co, device, seed=0, offset=0):
+    """bf16 z and dy; `offset` values into their storage, so that the
+    kernel sees pointers aligned to 2 * offset bytes modulo 16."""
+    out = []
+    for t in _dw_inputs(B, T, ci, co, "cpu", seed):
+        buf = torch.empty(t.numel() + offset, dtype=torch.bfloat16)
+        v = buf[offset:].view(t.shape)
+        v.copy_(t)
+        out.append(v.to(device) if offset == 0 else buf.to(device)[offset:].view(t.shape))
+    return out
+
+
+# (B, T, Ci, Co, KB, dc, offset): V2's 14 layers; KB 1..8 with dc at both
+# ends; channels that are even but not multiples of 8 (4-byte copies) and
+# odd (each bf16 by its thread); pointers 4- and 2-byte aligned; V2's
+# encode_8 at 64 x 512
+DW_BF16_CASES = (
+    [(3, 37, ci, co, 4, 2, 0) for ci, co in V2_DW_SHAPES]
+    + [(3, 37, 72, 88, kb, dc, 0) for kb in range(1, 9) for dc in sorted({0, kb - 1})]
+    + [(3, 37, 20, 14, 4, 2, 0), (3, 37, 21, 13, 4, 2, 0), (3, 37, 80, 96, 4, 2, 2),
+       (3, 37, 80, 96, 4, 2, 1), (64, 512, 184, 200, 4, 2, 0)]
+)
+DW_BF16_IDS = (
+    [f"v2_{ci}x{co}" for ci, co in V2_DW_SHAPES]
+    + [f"kb{kb}_dc{dc}" for kb in range(1, 9) for dc in sorted({0, kb - 1})]
+    + ["ci20_co14", "ci21_co13", "align4", "align2", "v2_layer"]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_BF16_CASES, ids=DW_BF16_IDS)
+def test_blocked_dw_bf16_matches_plain_on_cuda(cuda_device, case):
+    """bf16 z and dy: every product is exact in float32, so the kernel
+    differs from the plain version (which promotes to float32) only in the
+    order of float32 sums over up to 557k terms: rtol 1e-4, atol 1e-4 *
+    max|plain|, as the float32 instance."""
+    B, T, ci, co, kb, dc, offset = case
+    z, dy = _dw_inputs_bf16(B, T, ci, co, cuda_device, offset=offset)
+    before = (blocked_dw.launches, blocked_dw.launches_bf16)
+    got = blocked_dw.blocked_dw(z, dy, kb, dc)
+    torch.cuda.synchronize()
+    assert (blocked_dw.launches, blocked_dw.launches_bf16) == (before[0], before[1] + 1)
+    assert got.dtype == torch.float32
+    ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+    assert torch.equal(blocked_dw.blocked_dw(z, dy, kb, dc), got)
+
+
+@pytest.mark.cuda
+def test_blocked_freq_conv_bf16_rounds_dw_to_bf16_on_cuda(cuda_device):
+    """Under bf16 the Function's dW is the kernel's float32 dW rounded to
+    bf16 (JAX's `dw.astype(wb.dtype)`), and a mixed pair raises."""
+    z0, g = (t.to(torch.bfloat16) for t in _dw_inputs(2, 9, 24, 16, cuda_device, seed=1))
+    w0 = (0.1 * torch.randn(1, 4, 24, 16, generator=torch.Generator().manual_seed(2))).to(cuda_device)
+    w = w0.clone().requires_grad_()
+    z = z0.clone().requires_grad_()
+    (blocked_dw.blocked_freq_conv(z, w.to(torch.bfloat16), 2).float() * g.float()).sum().backward()
+    assert w.grad.dtype == torch.float32 and z.grad.dtype == torch.bfloat16
+    assert torch.equal(w.grad, blocked_dw.blocked_dw(z0, g, 4, 2).to(torch.bfloat16).float())
+    before = blocked_dw.launches_bf16
+    with pytest.raises(ValueError, match="two float32 or two bfloat16"):
+        blocked_dw.blocked_dw(z0, g.float(), 4, 2)
+    assert blocked_dw.launches_bf16 == before

@@ -48,6 +48,10 @@ SR = 8000
 NET = "FullyCNNV2"
 BUCKETS = (64,)  # every utterance below fits 64 frames: one shape to compile
 TOL = {"stoi": 1e-4, "sdr": 1e-2, "pesq": 1e-2}
+# cli.test under bf16 against float32, the unfused model: its waveforms are
+# about 1e-2 of max|ref| apart (tests/test_torch_bf16.py), and PESQ, the
+# most sensitive of the three, moved by 7.4e-2 on this corpus
+BF16_SCORE_TOL = {"stoi": 1e-2, "sdr": 0.5, "pesq": 0.25}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -169,10 +173,10 @@ def test_fused_evaluator_matches_jax_interpret_mode(npz, corpus):
     assert_scores_close(results, jresults)
 
 
-def _test_ini(path, npz, corpus, root, fused):
+def _test_ini(path, npz, corpus, root, fused, extra_model=""):
     path.write_text(
         f"[testing]\ncheckpoint_filepath={npz}\nbatch_size=2\n"
-        f"[model]\nnet_arch=RCED\nnet_work={NET}\nfused_inference={fused}\n"
+        f"[model]\nnet_arch=RCED\nnet_work={NET}\nfused_inference={fused}\n{extra_model}"
         f"[training]\nlog_dir={root}/logs\n"
         f"[data]\nsample_rate=8000\nsnr=0\ntest_manifest_path={corpus['clean']}\n"
         f"test_noise_manifest={corpus['noise']}\naudio_save_path={root}/denoise\n"
@@ -214,11 +218,11 @@ def test_cli_test_matches_jax_cli(npz, corpus, tmp_path, capsys, monkeypatch, fu
     assert glob.glob(str(root / "logs" / f"test_RCED_{NET}_*_log.txt"))
 
 
-def _train_ini(path, corpus, root, extra_train=""):
+def _train_ini(path, corpus, root, extra_train="", extra_model=""):
     path.write_text(
         f"[training]\nepochs=1\nbatch_size=2\nlr=0.001\nwarmup_steps=50\nvalid_every_epochs=1\n"
         f"checkpoints_path={root}/ckpt\nlog_dir={root}/log\nnum_iter_print=10\n{extra_train}"
-        f"[model]\nnet_work={NET}\n"
+        f"[model]\nnet_work={NET}\n{extra_model}"
         f"[data]\ntrain_manifest_path={corpus['clean']}\ntrain_noise_manifest={corpus['noise']}\n"
         f"val_manifest_path={corpus['premixed']}\naudio_save_path={root}/denoise\n"
     )
@@ -257,6 +261,51 @@ def test_cli_train_validates_every_epoch(corpus, tmp_path):
     assert "valid_pesq_proxy" not in valid[0] and "valid_score_failures" not in valid[0]
     assert valid[0]["valid_stoi"] == seen["results"]["stoi"]
     assert len(glob.glob(str(root / "denoise" / "0" / "*_de.wav"))) == 5
+
+
+BF16_TRAINING = "compute_dtype=bfloat16\nblocked_compute=True\nblocked_fb=8\ndw_pallas=True\n"
+
+
+def test_cli_train_bf16_trains_and_validates(corpus, tmp_path):
+    """`cli.train --device cpu` under `compute_dtype=bfloat16` with the
+    training profile's blocked form and dW Function: one epoch of finite
+    losses, its checkpoint, params and BN state still float32, and the
+    validation pass after it (BN batch statistics, bf16) logs finite
+    `valid_*` scalars and writes its triplets."""
+    root = tmp_path / "run"
+    ini = _train_ini(tmp_path / "t.cfg", corpus, root, extra_model=BF16_TRAINING)
+    assert tcfg.load_ini_config(ini).model.compute_dtype == "bfloat16"
+    trainer = train_cli.main(["--cfg", ini, "--device", "cpu"])
+    rows = [json.loads(line) for line in open(root / "log" / f"scalars_RCED_{NET}.jsonl")]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    assert losses and all(np.isfinite(losses))
+    assert os.listdir(root / "ckpt" / f"RCED_{NET}") == ["epoch_0.pt"]
+    for tree in (trainer.state.params, trainer.state.bn_state):
+        assert all(v.dtype == torch.float32 for d in tree.values() for v in d.values())
+    valid = [r for r in rows if "valid_stoi" in r]
+    assert len(valid) == 1 and all(np.isfinite(valid[0][k]) for k in ("valid_stoi", "valid_sdr", "valid_pesq"))
+    assert len(glob.glob(str(root / "denoise" / "0" / "*_de.wav"))) == 5
+
+
+def test_cli_test_scores_under_bf16(npz, corpus, tmp_path):
+    """`cli.test --device cpu` under `compute_dtype=bfloat16`: unfused, the
+    model runs in bf16 and the averages stay within BF16_SCORE_TOL of the
+    float32 run's (measured: STOI 4.7e-4, SDR 9.6e-3 dB, PESQ 7.4e-2 apart
+    on this corpus); fused, the stack kernel runs in float32 whatever
+    `compute_dtype` says, so the averages equal the float32 run's."""
+    results = {}
+    for fused in (False, True):
+        for dtype in ("float32", "bfloat16"):
+            root = tmp_path / f"{dtype}_{fused}"
+            ini = _test_ini(tmp_path / f"{dtype}_{fused}.cfg", npz, corpus, root, fused,
+                            extra_model=f"compute_dtype={dtype}\n")
+            results[fused, dtype] = test_cli.main(["--cfg", ini, "--num-works", "1", "--device", "cpu"])
+    print("cli.test bf16 - float32:",
+          {k: f"{results[False, 'bfloat16'][k] - results[False, 'float32'][k]:.2e}" for k in TOL})
+    for k, tol in BF16_SCORE_TOL.items():
+        assert np.isfinite(results[False, "bfloat16"][k])
+        assert abs(results[False, "bfloat16"][k] - results[False, "float32"][k]) <= tol, k
+    assert results[True, "bfloat16"] == results[True, "float32"]
 
 
 def test_trainer_validate_matches_jax_trainer(npz, corpus, tmp_path):

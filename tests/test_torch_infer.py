@@ -83,7 +83,7 @@ def test_engine_random_init_follows_the_seed():
 
 
 def test_non_npz_checkpoint_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="export_params_npz"):
         InferenceEngine(tcfg.Config(), checkpoint=str(tmp_path / "run_dir"), device="cpu")
 
 

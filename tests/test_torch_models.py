@@ -135,14 +135,21 @@ def test_glorot_init_is_seeded_and_bounded():
 
 
 def test_training_mode_is_not_ported_yet():
-    """Float32 training is ported (tests/test_torch_blocked.py,
-    tests/test_torch_train.py); the bf16 training mode is not, and its
-    train step raises naming the ROADMAP item."""
-    from fullycnnspeechenhancement_torch import Config, ModelConfig
-    from fullycnnspeechenhancement_torch.train.step import make_train_step
+    """The name is from when bf16 training raised; it is ported now (the
+    raise is gone, tests/test_torch_bf16.py holds it to JAX): under
+    `compute_dtype=bfloat16` `make_train_step` builds, and one step on a
+    tiny batch runs the model in bf16 and leaves a finite float32 loss."""
+    from fullycnnspeechenhancement_torch import Config, ModelConfig, TrainConfig
+    from fullycnnspeechenhancement_torch.train.step import Batch, create_train_state, make_train_step
 
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        make_train_step(Config(model=ModelConfig(compute_dtype="bfloat16")), get_model("FullyCNNV2"))
+    config = Config(model=ModelConfig(compute_dtype="bfloat16"), train=TrainConfig(batch_size=1))
+    model = get_model("FullyCNNV2")
+    train_step = make_train_step(config, model)
+    state = create_train_state(config, model, device="cpu")
+    wav = torch.as_tensor(np.random.default_rng(0).standard_normal((1, 2000)).astype(np.float32))
+    state, metrics = train_step(state, Batch(wav, 0.5 * wav, torch.tensor([2000], dtype=torch.int32)))
+    assert metrics["loss"].dtype == torch.float32 and torch.isfinite(metrics["loss"])
+    assert int(state.step) == 1
 
 
 def test_unknown_net_work_falls_back_to_v1():

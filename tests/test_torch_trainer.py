@@ -151,7 +151,6 @@ def test_warm_start_from_a_port_checkpoint(tmp_path, corpus):
     [
         ("data", "use_device_cache=True", "Queue 1 item 8"),
         ("training", "data_parallel=2", "Queue 1 item 10"),
-        ("model", "compute_dtype=bfloat16", "bf16 training"),
     ],
 )
 def test_unported_options_raise_naming_their_item(tmp_path, corpus, section, line, item):
