@@ -13,9 +13,10 @@ for an H100) and `nvcc`.  It imports only the port
      `ops/csrc/freq_conv.cu`), and prints their ptxas lines and build
      times; beside them the native host runtime (g++, `runtime/*.cc`:
      decode, resample, mixing, PESQ) and a probe of mma.sync's TF32 and
-     bf16 rates (MMA_RATE_SRC), measured once here and used by phases 7,
-     7b, 11 and 11c (both kernels issue mma.sync in 3xTF32, and their bf16
-     modes in bf16);
+     bf16 rates and of wgmma's bf16 rate (MMA_RATE_SRC), measured once here
+     and used by phases 7, 7b, 11 and 11c (both kernels issue mma.sync in
+     3xTF32, the stack's bf16 mode mma.sync in bf16, the bf16 dW kernel
+     wgmma);
 
   The serving path (the fused inference kernel, `rced_stack`):
   3. builds two V2 inference engines at full width from one npz of random
@@ -85,22 +86,27 @@ for an H100) and `nvcc`.  It imports only the port
      conversions in one train step;
  11a. a second `cli.train` with the TPU training profile's own dtype,
      `compute_dtype=bfloat16` (still without its device cache), one epoch
-     on phase 8's corpus with validation after it, the kernel's bf16
-     launch count set to 0 just before and read just after: 14 per step
-     (8 steps), no float32 launch, every loss finite, the checkpoint
-     written, params float32, the validation pass's scores finite;
+     on phase 8's corpus with validation after it, the bf16 dW kernels'
+     launch counts set to 0 just before and read just after: 14 per step
+     (8 steps) through the wgmma kernel, none through the bf16 mma.sync
+     one, no float32 launch, every loss finite, the checkpoint written,
+     params float32, the validation pass's scores finite;
  11b. bf16 parity: two trainers from phase 9's initial state on its 4
      batches under bf16, with and without dw_pallas: losses within rtol
      1e-2, Adam's moments within PARITY_MOMENT_TOL_BF16 of their scale;
      the per-step loss difference from phase 9's float32 run is logged,
      not gated;
- 11c. the kernel's bf16 mode against its plain version for V2's 14 layers
-     at 64 x 8 s and at B=3, T=37 (rtol 1e-4, atol 1e-4 * max|plain|),
-     its time over the 14 layers beside the 3xTF32 kernel's, its plain
-     version and `conv2d_weight` on bf16 inputs, its bf16 bound (bytes)
-     and mma.sync's bf16 floor; the bf16 train step with dw_pallas on and
-     off beside phase 11's float32 step, and one bf16 dispatch's
-     device-busy time;
+ 11c. the bf16 dW kernel (wgmma, fed by TMA) against its plain version
+     for V2's 14 layers at 64 x 8 s and at B=3, T=37 (rtol 1e-4, atol
+     1e-4 * max|plain|), each launch repeated bit for bit, no launch of
+     the bf16 mma.sync kernel; its time over the 14 layers beside that
+     kernel (`blocked_dw_mma_sync`, held against it within DW_TOL), the
+     3xTF32 kernel's (phase 11), its plain version and `conv2d_weight` on
+     bf16 inputs, its launch plan per layer (tile, ring of stages, splits,
+     cluster), its bf16 bound (bytes), the floor wgmma's rate (phase 2)
+     sets on the products it computes, and the mma.sync design's floor;
+     the bf16 train step with dw_pallas on and off beside phase 11's
+     float32 step, and one bf16 dispatch's device-busy time;
 
   The kernel-probe path (the frequency-conv kernels, `freq_conv` and
   `freq_conv_stack`):
@@ -904,14 +910,16 @@ def dw_against_plain(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.fl
     return max_err
 
 
-def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.float32):
-    """Per layer of `shapes` at 64 x 8 s: the dW kernel's `dtype` instance,
-    its plain version and `torch.nn.grad.conv2d_weight` in `dtype` (cuDNN's
-    backward-filter, the yardstick, held against the kernel first) with
+def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.float32, other=None):
+    """Per layer of `shapes` at 64 x 8 s: the dW kernel `blocked_dw` takes
+    for `dtype` (in bf16 the wgmma one), its plain version,
+    `torch.nn.grad.conv2d_weight` in `dtype` (cuDNN's backward-filter, the
+    yardstick, held against the kernel first) and, if given, `other` (a
+    function like `blocked_dw`, held against the kernel within DW_TOL) with
     CUDA events, and the kernel's launch plan.  Returns the sums over the
-    layers (kernel, plain, library) in ms, and the products the plans
-    compute over the products needed: the tiles pad Ci and Co, and each
-    row's nbp = NB + KB - 1 staged positions run all KB taps."""
+    layers (kernel, plain, library, other) in ms, and the products the
+    plans compute over the products needed: the tiles pad Ci and Co, and
+    each row's nbp staged positions run all KB taps."""
     from fullycnnspeechenhancement_torch.ops import blocked_dw
 
     # cuDNN sums in its own order and, in bf16, returns dW rounded to bf16
@@ -919,7 +927,8 @@ def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.floa
     label = "" if dtype == torch.float32 else "bf16 "
     rows = B_TRAIN * T_BUCKET
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    k_ms = p_ms = lib_ms = 0.0
+    k_ms = p_ms = lib_ms = other_ms = 0.0
+    padded_products = 0
     for name, ci, co in shapes:
         z = torch.randn(B_TRAIN, T_BUCKET, nb, ci, device=dev, generator=gen).to(dtype)
         dy = torch.randn(B_TRAIN, T_BUCKET, nb, co, device=dev, generator=gen).to(dtype)
@@ -929,24 +938,37 @@ def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.floa
         got = blocked_dw.blocked_dw(z, dy, kb, dc)
         check_close(f"conv2d_weight {label}{name}", lib.float(), got.permute(3, 2, 0, 1), lib_rtol,
                     lib_atol * got.abs().max().item())
+        if other is not None:
+            check_close(f"{label}{name} other design", other(z, dy, kb, dc), got, DW_TOL,
+                        DW_TOL * got.abs().max().item())
+            other_ms += cuda_ms(lambda: other(z, dy, kb, dc), reps=10)
         layer_k = cuda_ms(lambda: blocked_dw.blocked_dw(z, dy, kb, dc), reps=10)
         layer_p = cuda_ms(lambda: blocked_dw.blocked_dw_plain(z, dy, kb, dc), reps=2, warmup=1)
         layer_lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(zpad, (co, ci, 1, kb), go), reps=10)
-        plan = blocked_dw.launch_plan(rows, nb, ci, co, kb, sm_count,
-                                      blocked_dw.card_blocks_per_sm(kb, dev, dtype), dtype)
+        if blocked_dw.takes_wgmma(z, dy, kb):
+            plan = blocked_dw.wgmma_plan(rows, nb, ci, co, kb, sm_count,
+                                         blocked_dw.card_blocks_per_sm(kb, dev, dtype, wgmma=True))
+            tci, tco, nbp = plan.tile_ci, blocked_dw.TILE_CO_WGMMA, plan.nbp
+            detail = (f"tile {tco} co x {tci} ci, {plan.tiles} tiles x {plan.splits} splits of "
+                      f"{plan.rows_per_split} rows, a ring of {plan.stages} stages of "
+                      f"{blocked_dw.STAGE_ROWS_WGMMA} rows x {nbp} positions, cluster 1 (no multicast)")
+        else:
+            plan = blocked_dw.launch_plan(rows, nb, ci, co, kb, sm_count,
+                                          blocked_dw.card_blocks_per_sm(kb, dev, dtype), dtype)
+            tci, tco, nbp = blocked_dw.TILE, blocked_dw.tile_co(dtype), nb + kb - 1
+            detail = (f"{plan.tiles} tiles x {plan.splits} splits of {plan.rows_per_split} rows, "
+                      f"stages of {plan.stage_rows} rows")
         blocks, slots = plan.tiles * plan.splits, sm_count * plan.blocks_per_sm
         log(f"  {label}{name} Ci={ci} Co={co}: kernel {layer_k:.3f} ms, plain {layer_p:.3f} ms, "
-            f"conv2d_weight {layer_lib:.3f} ms; plan {plan.tiles} tiles x {plan.splits} splits "
-            f"of {plan.rows_per_split} rows, stages of {plan.stage_rows} rows, {plan.blocks_per_sm} "
-            f"blocks per SM at {plan.smem_bytes} B, {blocks / (-(-blocks // slots) * slots):.3f} of "
-            f"the waves' slots")
+            f"conv2d_weight {layer_lib:.3f} ms; plan {detail}, {plan.blocks_per_sm} blocks per SM at "
+            f"{plan.smem_bytes} B, {blocks / (-(-blocks // slots) * slots):.3f} of the waves' slots")
         k_ms, p_ms, lib_ms = k_ms + layer_k, p_ms + layer_p, lib_ms + layer_lib
+        padded_products += -(-ci // tci) * -(-co // tco) * tci * tco * nbp
         del z, dy, zpad, go, lib, got
-    tci, tco = blocked_dw.TILE, blocked_dw.tile_co(dtype)
-    padded = sum(-(-ci // tci) * -(-co // tco) * tci * tco for _, ci, co in shapes) / sum(
-        ci * co for _, ci, co in shapes)
-    computed = padded * (nb + kb - 1) * kb / sum(max(0, nb - abs(d - dc)) for d in range(kb))
-    return k_ms, p_ms, lib_ms, padded, computed
+    needed = sum(ci * co for _, ci, co in shapes)
+    padded = padded_products / (nbp * needed)
+    computed = padded_products * kb / (needed * sum(max(0, nb - abs(d - dc)) for d in range(kb)))
+    return k_ms, p_ms, lib_ms, other_ms, padded, computed
 
 
 def time_steps(trainers: dict, batch) -> dict:
@@ -1160,7 +1182,7 @@ def run_training(dev, tmp: str, rate: float):
     # -- 11. timings -----------------------------------------------------------
     t0 = time.perf_counter()
     rows_full = B_TRAIN * T_BUCKET
-    k_ms, p_ms, lib_ms, padded, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen)
+    k_ms, p_ms, lib_ms, _, padded, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen)
     flop, nbytes = dw_work(shapes, rows_full, nb, kb, dc)
     # 3xTF32 issues three TF32 products for each float32 one
     t_ops, t_simt = 3 * flop / PEAK_TF32_FLOPS * 1e3, flop / PEAK_FP32_FLOPS * 1e3
@@ -1235,9 +1257,10 @@ def run_training(dev, tmp: str, rate: float):
     return entry, last, ctx
 
 
-def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float) -> dict:
-    """Phases 11a-11c: the training path in bf16, through the dW kernel's
-    bf16 mode.  Returns the bf16 `blocked_dw` entry of the `kernels` line."""
+def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: float) -> dict:
+    """Phases 11a-11c: the training path in bf16, through the bf16 dW
+    kernel on wgmma.  Returns the bf16 `blocked_dw` entry of the `kernels`
+    line."""
     from fullycnnspeechenhancement_torch import load_ini_config
     from fullycnnspeechenhancement_torch.cli import train as train_cli
     from fullycnnspeechenhancement_torch.eval.metrics import PESQ
@@ -1256,11 +1279,12 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float) -> dict:
     ini = write_train_ini(os.path.join(tmp, "train_bf16.cfg"), root, corpus, compute_dtype="bfloat16",
                           epochs=EPOCHS_BF16, valid_every=1)
     validations = []
-    blocked_dw.launches = blocked_dw.launches_bf16 = 0
+    blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
     with timed_validation(validations):
         trainer = train_cli.main(["--cfg", ini])
     torch.cuda.synchronize()
     launches, launches32 = blocked_dw.launches_bf16, blocked_dw.launches
+    launches_old = blocked_dw.launches_bf16_mma_sync
     main_s = time.perf_counter() - t0
     with open(os.path.join(root, "log", "scalars_RCED_FullyCNNV2.jsonl")) as f:
         all_rows = [json.loads(line) for line in f]
@@ -1268,12 +1292,13 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float) -> dict:
     valid = [r for r in all_rows if any(k.startswith("valid_") for k in r)]
     steps = len(rows)
     log(f"bf16 training main path: {steps} steps in {main_s:.1f} s, blocked_dw bf16 launches {launches} "
-        f"(float32 {launches32}), losses {[round(r['loss'], 3) for r in rows]}")
+        f"through the wgmma kernel ({launches_old} through the mma.sync one, float32 {launches32}), "
+        f"losses {[round(r['loss'], 3) for r in rows]}")
     if steps != EPOCHS_BF16 * N_UTTS // B_TRAIN:
         raise AssertionError(f"bf16: {steps} logged steps, expected {EPOCHS_BF16 * N_UTTS // B_TRAIN}")
-    if launches != n_dw * steps or launches32 != 0:
-        raise AssertionError(f"bf16: blocked_dw launched {launches} bf16 and {launches32} float32 times "
-                             f"in {steps} steps, expected {n_dw * steps} and 0")
+    if launches != n_dw * steps or launches32 != 0 or launches_old != 0:
+        raise AssertionError(f"bf16: blocked_dw launched {launches} wgmma, {launches_old} bf16 mma.sync and "
+                             f"{launches32} float32 times in {steps} steps, expected {n_dw * steps}, 0 and 0")
     if not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError("bf16: a logged loss is not finite")
     files = sorted(os.listdir(trainer.ckpt.dir))
@@ -1328,18 +1353,33 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float) -> dict:
     kb, nb = J.shape[0], -(-129 // 8)
     shapes = dw_layer_shapes(model)
     gen = torch.Generator(device=dev).manual_seed(6)
+    if not all(blocked_dw.takes_wgmma(torch.empty(1, 1, nb, ci, dtype=bf16, device=dev),
+                                      torch.empty(1, 1, nb, co, dtype=bf16, device=dev), kb)
+               for _, ci, co in shapes):
+        raise AssertionError("bf16: a V2 layer's shape does not go to the wgmma kernel")
+    blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
     max_err = dw_against_plain(dev, shapes, kb, dc, nb, gen, bf16)
-    k_ms, p_ms, lib_ms, _, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen, bf16)
+    if blocked_dw.launches_bf16_mma_sync != 0:
+        raise AssertionError("bf16: the dW checks launched the mma.sync kernel")
+    k_ms, p_ms, lib_ms, old_ms, _, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen, bf16,
+                                                             other=blocked_dw.blocked_dw_mma_sync)
     flop, nbytes = dw_work(shapes, B_TRAIN * T_BUCKET, nb, kb, dc, in_bytes=2)
     t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
-    floor_ms = flop * computed / (rate_bf16 * 1e12) * 1e3
-    log(f"timing blocked_dw bf16 over V2's 14 layers at {B_TRAIN} x 8 s: kernel {k_ms:.3f} ms (3xTF32 "
-        f"{ctx['kernel_ms32']:.3f} ms), plain {p_ms:.3f} ms, conv2d_weight in bf16 (cuDNN) {lib_ms:.3f} ms")
+    floor_ms = flop * computed / (rate_wgmma * 1e12) * 1e3
+    # the mma.sync design's tiles (TILE ci by tile_co(bf16) co) and nbp
+    tci, tco = blocked_dw.TILE, blocked_dw.tile_co(bf16)
+    old_computed = sum(-(-ci // tci) * -(-co // tco) * tci * tco for _, ci, co in shapes) * (nb + kb - 1) * kb / (
+        sum(ci * co for _, ci, co in shapes) * sum(max(0, nb - abs(d - dc)) for d in range(kb)))
+    old_floor_ms = flop * old_computed / (rate_bf16 * 1e12) * 1e3
+    log(f"timing blocked_dw bf16 over V2's 14 layers at {B_TRAIN} x 8 s: wgmma kernel {k_ms:.3f} ms, "
+        f"the bf16 mma.sync design {old_ms:.3f} ms, the 3xTF32 kernel {ctx['kernel_ms32']:.3f} ms (phase 11), "
+        f"plain {p_ms:.3f} ms, conv2d_weight in bf16 (cuDNN) {lib_ms:.3f} ms")
     log(f"bound bf16: {flop:.4e} FLOP -> {t_ops:.3f} ms at 989 TFLOP/s; {nbytes:.4e} B -> {t_bytes:.3f} ms at "
         f"3.35 TB/s; kernel at {100 * bound_ms / k_ms:.1f}% of it; it computes {computed:.4f}x the needed "
-        f"products, at mma.sync's bf16 {rate_bf16:.1f} TFLOP/s a floor of {floor_ms:.3f} ms "
-        f"(kernel at {100 * floor_ms / k_ms:.1f}% of it)")
+        f"products, at wgmma's {rate_wgmma:.1f} TFLOP/s (phase 2) a floor of {floor_ms:.3f} ms (kernel at "
+        f"{100 * floor_ms / k_ms:.1f}% of it); the mma.sync design computes {old_computed:.4f}x, at mma.sync's "
+        f"bf16 {rate_bf16:.1f} TFLOP/s a floor of {old_floor_ms:.3f} ms")
     # whole bf16 train steps, beside float32's
     audio_s = float(sum(b.lengths.sum() for b in ctx["batches"][:1])) / SR
     step_ms = time_steps(trainers, ctx["batches"][0])
@@ -1377,9 +1417,17 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float) -> dict:
         "library": "torch.nn.grad.conv2d_weight on bf16 (cuDNN backward-filter), one call per layer",
         "float32_kernel_ms": ctx["kernel_ms32"],
         "mma_sync_bf16_tflops": rate_bf16,
+        "wgmma_bf16_tflops": rate_wgmma,
         "train_step_bf16_ms": {"dw_pallas": float(np.mean(step_ms[True])), "cudnn": float(np.mean(step_ms[False]))},
-        # computed from this run's inputs and the rate above, not timed
-        "derived": {"computed_product_ratio": computed, "mma_sync_floor_ms": floor_ms},
+        # floors computed from this run's inputs, plans and the rates above,
+        # and the bf16 mma.sync design timed beside the kernel (blocked_dw_mma_sync)
+        "derived": {
+            "computed_product_ratio": computed,
+            "wgmma_floor_ms": floor_ms,
+            "mma_sync_design_ms": old_ms,
+            "mma_sync_design_product_ratio": old_computed,
+            "mma_sync_floor_ms": old_floor_ms,
+        },
     }
 
 
@@ -1924,7 +1972,8 @@ def run_evaluation(dev, tmp: str, checkpoint: str) -> dict:
 # second kernel, m16n8k16 bf16 ones) when nothing else is issued, A and B
 # from 2 and 8 register sets as in blocked_dw.cu: the most that kernel's
 # instruction could give, beside the data sheet's 495 (989 in bf16)
-# TFLOP/s, which wgmma reaches.
+# TFLOP/s, which wgmma reaches; and, in the third, the rate of the wgmma
+# products the bf16 dW kernel issues.
 MMA_RATE_SRC = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1978,6 +2027,65 @@ extern "C" int mma_rate_bf16_launch(float* out, int blocks, int iters) {
   mma_rate_bf16<<<blocks, 128>>>(out, iters);
   return (int)cudaGetLastError();
 }
+// wgmma.m64n64k16 on bf16 operands from shared memory, both MN-major under
+// the 128-byte swizzle, float32 accumulators, as blocked_dw.cu's
+// dw_wgmma_kernel issues it: two warpgroups a block, one block an SM, four
+// accumulators, groups of 40 products with one group in flight, on random
+// bf16 values of magnitude about 1.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  const uint64_t off = 1024 >> 4;
+  return (uint64_t)((addr >> 4) & 0x3FFF) | (off << 16) | (off << 32) | (1ull << 62);
+}
+#define R8(b) "+f"(c[b]), "+f"(c[b + 1]), "+f"(c[b + 2]), "+f"(c[b + 3]), "+f"(c[b + 4]), \
+              "+f"(c[b + 5]), "+f"(c[b + 6]), "+f"(c[b + 7])
+__device__ __forceinline__ void wgmma64(float (&c)[32], uint64_t a, uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
+               "%8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+               "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+               : R8(0), R8(8), R8(16), R8(24) : "l"(a), "l"(b), "r"(1));
+}
+__global__ void __launch_bounds__(256, 1) wgmma_rate(float* out, int iters) {
+  extern __shared__ uint8_t raw[];
+  const uint32_t raw_addr = (uint32_t)__cvta_generic_to_shared(raw);
+  const uint32_t base = (raw_addr + 1023) & ~1023u;
+  uint32_t* w = (uint32_t*)(raw + (base - raw_addr));
+  for (int i = threadIdx.x; i < 96 * 1024 / 4; i += blockDim.x) {
+    uint32_t h = i * 2654435761u + blockIdx.x * 97u;
+    h ^= h >> 13;
+    h *= 0x5bd1e995u;
+    h ^= h >> 15;
+    w[i] = (h & 0x807f807fu) | 0x3f003f00u;  // two bf16 in +-[1, 2)
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  float c[4][32];
+  for (int t = 0; t < 4; ++t)
+    for (int i = 0; i < 32; ++i) c[t][i] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    // a loop, as the kernel's k16 loop is: unrolled, ptxas serialises
+    // these wgmma
+#pragma unroll 1
+    for (int k = 0; k < 10; ++k) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) wgmma64(c[t], wg_desc(base + 2048 * k), wg_desc(base + 40960 + 1024 * (2 * k + t)));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  float s = 0.f;
+  for (int t = 0; t < 4; ++t)
+    for (int i = 0; i < 32; ++i) s += c[t][i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int wgmma_rate_launch(float* out, int blocks, int iters) {
+  const int smem = 97 * 1024;
+  cudaFuncSetAttribute(wgmma_rate, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  wgmma_rate<<<blocks, 256, smem>>>(out, iters);
+  return (int)cudaGetLastError();
+}
 """
 
 
@@ -2008,6 +2116,23 @@ def mma_sync_tflops(lib_path: str, bf16: bool = False) -> float:
         raise RuntimeError("mma_rate launch failed")
     ms = cuda_ms(lambda: launch(out.data_ptr(), blocks, iters), reps=3, warmup=1)
     return blocks * 4 * iters * 16 * (4096 if bf16 else 2048) / ms / 1e9
+
+
+def wgmma_tflops(lib_path: str) -> float:
+    """TFLOP/s of MMA_RATE_SRC's wgmma kernel (m64n64k16 on bf16 from shared
+    memory, 131,072 FLOP a product): one block of two warpgroups per SM,
+    timed with CUDA events after a warm-up."""
+    import ctypes
+
+    launch = ctypes.CDLL(lib_path).wgmma_rate_launch
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 256, device="cuda")
+    iters = 4000
+    if launch(out.data_ptr(), blocks, 10) != 0:
+        raise RuntimeError("wgmma_rate launch failed")
+    ms = cuda_ms(lambda: launch(out.data_ptr(), blocks, iters), reps=3, warmup=1)
+    return blocks * 2 * iters * 40 * 2 * 64 * 64 * 16 / ms / 1e9
 
 
 def build_kernels() -> str:
@@ -2047,9 +2172,16 @@ def build_kernels() -> str:
         log(f"build: {name}.cu in {seconds[name]:.1f} s")
         log_path = f"{build.library_path(name)}.log"
         if os.path.exists(log_path):
-            for line in open(log_path).read().splitlines():
-                if "registers" in line or "smem" in line or "spill" in line or "entry function" in line:
+            lines = open(log_path).read().splitlines()
+            for line in lines:
+                if "C7519" in line:  # warpgroup.arrive injected around wgmma: counted below
+                    continue
+                if ("registers" in line or "smem" in line or "spill" in line or "entry function" in line
+                        or "serialized" in line):
                     log(f"  ptxas: {line.strip()}")
+            injected = sum("C7519" in line for line in lines)
+            if injected:
+                log(f"  ptxas: {injected} notes of a warpgroup.arrive injected before a wgmma")
     return probe_lib
 
 
@@ -2070,14 +2202,16 @@ def main() -> int:
     rate_lib = build_kernels()
     mma_rate = mma_sync_tflops(rate_lib)
     rate_bf16 = mma_sync_tflops(rate_lib, bf16=True)
-    log(f"mma.sync m16n8k8 TF32 alone: {mma_rate:.1f} TFLOP/s; m16n8k16 bf16 alone: {rate_bf16:.1f} TFLOP/s")
+    rate_wgmma = wgmma_tflops(rate_lib)
+    log(f"mma.sync m16n8k8 TF32 alone: {mma_rate:.1f} TFLOP/s; m16n8k16 bf16 alone: {rate_bf16:.1f} TFLOP/s; "
+        f"wgmma m64n64k16 bf16 (shared-memory operands) alone: {rate_wgmma:.1f} TFLOP/s")
     phase("build", t0)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         stack_entry, stack_bf16_entry = run_serving(dev, tmp, mma_rate, rate_bf16)
         phase("serving", t0)
         dw_entry, last_checkpoint, train_ctx = run_training(dev, tmp, mma_rate)
-        dw_bf16_entry = run_training_bf16(dev, tmp, train_ctx, rate_bf16)
+        dw_bf16_entry = run_training_bf16(dev, tmp, train_ctx, rate_bf16, rate_wgmma)
         t0 = time.perf_counter()
         probe_path = run_probe_path(dev, mma_rate)
         phase("probe path", t0)

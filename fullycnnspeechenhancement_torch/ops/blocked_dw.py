@@ -14,11 +14,17 @@ weight gradient is
 
 returned as [1, KB, Ci, Co] (HWIO) float32, as `blocked_dw_pallas` returns
 it.  z and dy are both float32 or both bfloat16 (the compute dtype, as the
-JAX kernel takes them); the kernel has an instance for each, 3xTF32 and
-bf16 `mma.sync`.  `blocked_dw` is the kernel's wrapper: on a CPU tensor it
-runs `blocked_dw_plain`, the same contraction as einsums in float32; on a
-CUDA tensor it launches the kernel (building it on first use) or raises.
-`launches` and `launches_bf16` count each instance's launches.
+JAX kernel takes them).  float32 runs a 3xTF32 `mma.sync` kernel; bfloat16
+runs a `wgmma` kernel fed by TMA where Ci and Co are multiples of 8 and
+both tensors 16-byte aligned (`takes_wgmma`: every blocked layer at fb 8),
+and a bf16 `mma.sync` kernel on any other shape, chosen by shape before
+the launch.  `blocked_dw` is the kernels' wrapper: on a CPU tensor it runs
+`blocked_dw_plain`, the same contraction as einsums in float32; on a CUDA
+tensor it launches a kernel (building it on first use) or raises.
+`blocked_dw_mma_sync` launches the bf16 `mma.sync` kernel on any bf16
+shape, so that it can be checked and timed beside the `wgmma` one; no
+path of the package calls it.  `launches`, `launches_bf16` (`wgmma`) and
+`launches_bf16_mma_sync` count each kernel's launches.
 
 `blocked_freq_conv` is the autograd Function around the raw blocked conv
 (JAX's `custom_vjp`): the forward and dX are cuDNN convs, dW is
@@ -44,14 +50,25 @@ ROW_PAD = 4  # floats after each staged position's channels (csrc kRowPad)
 ROW_PAD_BF16 = 8  # the same in bf16 values (csrc kRowPadBf16)
 STAGE_POSITIONS = 80  # flat K positions (rows x nbp) aimed at per stage
 K_STEP = {torch.float32: 8, torch.bfloat16: 16}  # K per mma.sync (m16n8k8, m16n8k16)
+FLUSH_POSITIONS = 4096  # K positions between flushes into float32 (csrc kFlushPositions)
 SMEM_BYTES = 232_448  # the most shared memory one Hopper block can use
 SM_SMEM_BYTES = 233_472  # shared memory of one SM; each block also takes 1 KiB
 MAX_WAVES = 4  # waves of blocks the row splits may take
+# The bf16 wgmma kernel (csrc dw_wgmma_kernel): 64 co by tile_ci_wgmma(KB)
+# ci a block, stages of 8 rows, two consumer warpgroups that take stages in
+# turn and each write a slot of partial sums, a ring of 3 to 8 stages.
+TILE_CO_WGMMA = 64  # csrc kWgCo
+STAGE_ROWS_WGMMA = 8  # csrc kWgRows
+WGMMA_CONSUMERS = 2  # csrc kWgConsumers
+WGMMA_MIN_STAGES = 3  # csrc kWgMinStages: a warpgroup holds two stages at once
+WGMMA_MAX_STAGES = 8  # csrc kWgMaxStages
+MAX_BOX = 256  # the most elements a TMA box takes along one dimension
 
 # Kernel launches since the counts were last set to 0: the float32
-# instance and the bf16 one.
+# kernel, the bf16 wgmma kernel and the bf16 mma.sync one.
 launches = 0
 launches_bf16 = 0
+launches_bf16_mma_sync = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _occupancy: dict = {}
@@ -119,25 +136,126 @@ def launch_plan(rows: int, nb: int, ci: int, co: int, kb: int, sm_count: int,
     if per_sm < 1:
         raise ValueError(f"blocked_dw: no block of {smem} B of shared memory fits an SM")
     tiles = -(-ci // TILE) * -(-co // tile_co(dtype))
-    slots = sm_count * per_sm
+    rows_per_split, splits = row_splits(rows, stage_rows, tiles, sm_count * per_sm)
+    return Plan(stage_rows, smem, per_sm, tiles, rows_per_split, splits)
+
+
+def row_splits(rows: int, stage_rows: int, tiles: int, slots: int):
+    """(rows_per_split, splits): whole stages per split, and the split
+    count whose tiles x splits blocks best fill whole waves of `slots`
+    resident blocks, over up to MAX_WAVES waves beyond the fewest the tiles
+    need (fewer splits on ties)."""
     stages = -(-rows // stage_rows)
 
-    def rows_per(splits: int) -> int:  # whole stages per split
+    def rows_per(splits: int) -> int:
         return -(-rows // (splits * stage_rows)) * stage_rows
 
     def fill(splits: int) -> float:  # the share of the waves' slots used
         blocks = tiles * -(-rows // rows_per(splits))
         return blocks / (-(-blocks // slots) * slots)
 
-    # the split count whose blocks fill their waves best, over up to
-    # MAX_WAVES waves beyond the fewest the tiles need (fewer on ties)
     least = -(-tiles // slots)
     splits = max(
         (max(1, min(stages, w * slots // tiles)) for w in range(least, least + MAX_WAVES)),
         key=lambda s: (fill(s), -s),
     )
-    rows_per_split = rows_per(splits)
-    return Plan(stage_rows, smem, per_sm, tiles, rows_per_split, -(-rows // rows_per_split))
+    per = rows_per(splits)
+    return per, -(-rows // per)
+
+
+class WgmmaPlan(NamedTuple):
+    """How one launch of the bf16 wgmma kernel covers its problem: `tiles`
+    blocks of TILE_CO_WGMMA co by `tile_ci` ci per row split, stages of
+    STAGE_ROWS_WGMMA rows by `nbp` staged positions, a ring of `stages`
+    (`smem_bytes` of shared memory, `blocks_per_sm` resident blocks at
+    that), and `splits` row splits of `rows_per_split` rows."""
+
+    tile_ci: int
+    nbp: int
+    stages: int
+    smem_bytes: int
+    blocks_per_sm: int
+    tiles: int
+    rows_per_split: int
+    splits: int
+
+
+def tile_ci_wgmma(kb: int) -> int:
+    """ci per block of the wgmma kernel's KB instance (csrc wg_tile_ci):
+    64 x N x KB float32 accumulators a warpgroup fit 128 registers a
+    thread."""
+    return 64 if kb <= 4 else 32
+
+
+def wgmma_nbp(nb: int, kb: int) -> int:
+    """Staged positions per row: NB + KB - 1, rounded up to even so that a
+    stage of 8 rows is whole k16 chunks."""
+    return -(-(nb + kb - 1) // 2) * 2
+
+
+def wgmma_stage_bytes(nbp: int, kb: int) -> int:
+    """One stage (csrc wg_stage_bytes): dy [8 nbp K-rows][64 co] and z
+    [8 (nbp + KB - 1) K-rows][tile_ci ci] in bf16, rounded up to 1024."""
+    raw = 2 * STAGE_ROWS_WGMMA * (nbp * TILE_CO_WGMMA + (nbp + kb - 1) * tile_ci_wgmma(kb))
+    return -(-raw // 1024) * 1024
+
+
+def wgmma_smem_bytes(nbp: int, kb: int, stages: int) -> int:
+    """One block (csrc wg_smem_bytes): 1024 bytes of alignment, the ring, a
+    flush buffer per consumer warpgroup (tile_ci rows of 64 co floats), and
+    a full and an empty mbarrier for each of WGMMA_MAX_STAGES."""
+    flush = tile_ci_wgmma(kb) * 4 * TILE_CO_WGMMA
+    return 1024 + stages * wgmma_stage_bytes(nbp, kb) + WGMMA_CONSUMERS * flush + 2 * WGMMA_MAX_STAGES * 8
+
+
+def wgmma_stages(nb: int, kb: int) -> int:
+    """The deepest ring, up to WGMMA_MAX_STAGES, whose block fits SMEM_BYTES
+    (0 if WGMMA_MIN_STAGES do not fit)."""
+    nbp = wgmma_nbp(nb, kb)
+    fit = [s for s in range(WGMMA_MIN_STAGES, WGMMA_MAX_STAGES + 1)
+           if wgmma_smem_bytes(nbp, kb, s) <= SMEM_BYTES]
+    return max(fit, default=0)
+
+
+def takes_wgmma(z: torch.Tensor, dy: torch.Tensor, kb: int) -> bool:
+    """Whether the bf16 pair z [B, T, NB, Ci], dy [B, T, NB, Co] goes to
+    the wgmma kernel: Ci and Co multiples of 8 and both tensors 16-byte
+    aligned (TMA's rules for its tensor maps), nbp within one TMA box, a
+    ring of WGMMA_MIN_STAGES stages within a block's shared memory, and
+    fewer than 2^31 rows (TMA's coordinates).  Decided by shape alone,
+    before any launch."""
+    nb, ci, co = z.shape[-2], z.shape[-1], dy.shape[-1]
+    return (z.dtype == dy.dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0
+            and z.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+            and wgmma_nbp(nb, kb) <= MAX_BOX and wgmma_stages(nb, kb) > 0
+            and z.numel() // max(1, nb * ci) < 2**31)
+
+
+def wgmma_plan(rows: int, nb: int, ci: int, co: int, kb: int, sm_count: int,
+               blocks_per_sm: Optional[Callable[[int], int]] = None) -> WgmmaPlan:
+    """The wgmma kernel's plan: the deepest ring that fits, its tiles, and
+    row splits of whole stages: as many as one wave of sm_count *
+    blocks_per_sm(smem) resident blocks holds (1 a SM when not given: the
+    ring takes most of an SM's shared memory), or, for more tiles than a
+    wave, those that best fill whole waves (`row_splits`)."""
+    nbp, stages = wgmma_nbp(nb, kb), wgmma_stages(nb, kb)
+    if nbp > MAX_BOX or not stages:
+        raise ValueError(f"blocked_dw: the wgmma kernel does not take NB={nb}, KB={kb}")
+    smem = wgmma_smem_bytes(nbp, kb, stages)
+    per_sm = blocks_per_sm(smem) if blocks_per_sm else 1
+    if per_sm < 1:
+        raise ValueError(f"blocked_dw: no block of {smem} B of shared memory fits an SM")
+    tile_ci = tile_ci_wgmma(kb)
+    tiles = -(-ci // tile_ci) * -(-co // TILE_CO_WGMMA)
+    slots = sm_count * per_sm
+    if tiles <= slots:
+        # one wave: each block's prologue, pipeline fill and last flush are
+        # paid once, and the reduce reads the fewest partial slots
+        per = -(-rows // (max(1, slots // tiles) * STAGE_ROWS_WGMMA)) * STAGE_ROWS_WGMMA
+        rows_per_split, splits = per, -(-rows // per)
+    else:
+        rows_per_split, splits = row_splits(rows, STAGE_ROWS_WGMMA, tiles, slots)
+    return WgmmaPlan(tile_ci, nbp, stages, smem, per_sm, tiles, rows_per_split, splits)
 
 
 def blocked_dw_plain(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Tensor:
@@ -164,6 +282,12 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
+        lib.blocked_dw_wgmma.restype = ctypes.c_int
+        lib.blocked_dw_wgmma.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
         lib.blocked_dw_blocks_per_sm.restype = ctypes.c_int
         lib.blocked_dw_blocks_per_sm.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -179,18 +303,20 @@ def _check(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"blocked_dw {what} failed: {lib.blocked_dw_error_string(rc).decode()} ({rc})")
 
 
-def card_blocks_per_sm(kb: int, device: torch.device, dtype=torch.float32) -> Callable[[int], int]:
-    """blocks_per_sm(smem) of the KB instance of `dtype` on `device`, from
-    the CUDA occupancy calculator (registers and shared memory), cached."""
+def card_blocks_per_sm(kb: int, device: torch.device, dtype=torch.float32,
+                       wgmma: bool = False) -> Callable[[int], int]:
+    """blocks_per_sm(smem) of the KB instance of the `dtype` mma.sync
+    kernel, or of the wgmma one, on `device`, from the CUDA occupancy
+    calculator (registers and shared memory), cached."""
     lib = load_library()
-    bf16 = int(dtype == torch.bfloat16)
+    mode = 2 if wgmma else int(dtype == torch.bfloat16)
 
     def blocks(smem: int) -> int:
-        key = (device.index, kb, smem, bf16)
+        key = (device.index, kb, smem, mode)
         if key not in _occupancy:
             n = ctypes.c_int(0)
             with torch.cuda.device(device):
-                rc = lib.blocked_dw_blocks_per_sm(kb, smem, bf16, ctypes.byref(n))
+                rc = lib.blocked_dw_blocks_per_sm(kb, smem, mode, ctypes.byref(n))
             _check(lib, rc, "occupancy query")
             _occupancy[key] = n.value
         return _occupancy[key]
@@ -198,15 +324,9 @@ def card_blocks_per_sm(kb: int, device: torch.device, dtype=torch.float32) -> Ca
     return blocks
 
 
-def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Tensor:
-    """dW of one blocked freq-conv: z [B, T, NB, Ci], dy [B, T, NB, Co],
-    both float32 or both bfloat16 -> [1, KB, Ci, Co] float32.
-
-    CPU tensors run `blocked_dw_plain`.  CUDA tensors launch the kernel
-    instance of their dtype or raise; they never fall back to the plain
-    version."""
-    if z.device.type == "cpu" and dy.device.type == "cpu":
-        return blocked_dw_plain(z, dy, kb, dc)
+def _checked(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int):
+    """(rows, NB, Ci, Co) of a CUDA pair the kernels take; raises on any
+    other."""
     if z.device.type != "cuda" or dy.device != z.device:
         raise ValueError(f"blocked_dw runs on cpu or cuda tensors, got {z.device} and {dy.device}")
     if z.dtype not in K_STEP or dy.dtype != z.dtype:
@@ -222,12 +342,17 @@ def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Ten
     rows = B * T
     if rows < 1 or nb < 1 or ci < 1 or co < 1:
         raise ValueError(f"blocked_dw got an empty tensor {tuple(z.shape)}, {tuple(dy.shape)}")
+    return rows, nb, ci, co
+
+
+def _launch_mma_sync(z, dy, kb, dc, rows, nb, ci, co) -> torch.Tensor:
+    """The float32 kernel, or the bf16 mma.sync one, on a checked pair."""
     sm_count = torch.cuda.get_device_properties(z.device).multi_processor_count
     lib = load_library()
     plan = launch_plan(rows, nb, ci, co, kb, sm_count, card_blocks_per_sm(kb, z.device, z.dtype),
                        z.dtype)
     bf16 = z.dtype == torch.bfloat16
-    global launches, launches_bf16
+    global launches, launches_bf16_mma_sync
     out = torch.empty(1, kb, ci, co, dtype=torch.float32, device=z.device)
     part = out if plan.splits == 1 else torch.empty(
         plan.splits, kb, ci, co, dtype=torch.float32, device=z.device
@@ -240,10 +365,62 @@ def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Ten
         )
     _check(lib, rc, "launch")
     if bf16:
-        launches_bf16 += 1
+        launches_bf16_mma_sync += 1
     else:
         launches += 1
     return out
+
+
+def _launch_wgmma(z, dy, kb, dc, rows, nb, ci, co) -> torch.Tensor:
+    """The bf16 wgmma kernel on a checked pair that `takes_wgmma`."""
+    sm_count = torch.cuda.get_device_properties(z.device).multi_processor_count
+    lib = load_library()
+    plan = wgmma_plan(rows, nb, ci, co, kb, sm_count,
+                      card_blocks_per_sm(kb, z.device, torch.bfloat16, wgmma=True))
+    global launches_bf16
+    out = torch.empty(1, kb, ci, co, dtype=torch.float32, device=z.device)
+    # a slot per consumer warpgroup of each split, padded to whole tiles
+    part = torch.empty(WGMMA_CONSUMERS * plan.splits, kb, -(-ci // plan.tile_ci) * plan.tile_ci,
+                       -(-co // TILE_CO_WGMMA) * TILE_CO_WGMMA, dtype=torch.float32, device=z.device)
+    with torch.cuda.device(z.device):
+        rc = lib.blocked_dw_wgmma(
+            z.data_ptr(), dy.data_ptr(), out.data_ptr(), part.data_ptr(),
+            rows, nb, ci, co, kb, dc, plan.rows_per_split, plan.splits, plan.stages,
+            torch.cuda.current_stream(z.device).cuda_stream,
+        )
+    _check(lib, rc, "launch")
+    launches_bf16 += 1
+    return out
+
+
+def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Tensor:
+    """dW of one blocked freq-conv: z [B, T, NB, Ci], dy [B, T, NB, Co],
+    both float32 or both bfloat16 -> [1, KB, Ci, Co] float32.
+
+    CPU tensors run `blocked_dw_plain`.  CUDA tensors launch a kernel or
+    raise; they never fall back to the plain version: float32 the 3xTF32
+    kernel, bfloat16 the wgmma kernel where `takes_wgmma`, else the bf16
+    mma.sync kernel (by shape, before the launch)."""
+    if z.device.type == "cpu" and dy.device.type == "cpu":
+        return blocked_dw_plain(z, dy, kb, dc)
+    dims = _checked(z, dy, kb, dc)
+    if z.dtype == torch.bfloat16 and takes_wgmma(z, dy, kb):
+        return _launch_wgmma(z, dy, kb, dc, *dims)
+    return _launch_mma_sync(z, dy, kb, dc, *dims)
+
+
+def blocked_dw_mma_sync(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Tensor:
+    """`blocked_dw` on bfloat16 z and dy through the bf16 mma.sync kernel,
+    whatever their shape: the design the wgmma kernel replaced where it
+    takes the shape, kept for the shapes it does not take.  For checking
+    and timing the two side by side; no path of the package calls it.
+    CPU tensors run `blocked_dw_plain`."""
+    if z.device.type == "cpu" and dy.device.type == "cpu":
+        return blocked_dw_plain(z, dy, kb, dc)
+    dims = _checked(z, dy, kb, dc)
+    if z.dtype != torch.bfloat16:
+        raise ValueError(f"blocked_dw_mma_sync takes bfloat16 tensors, got {z.dtype}")
+    return _launch_mma_sync(z, dy, kb, dc, *dims)
 
 
 def conv_nhwc(z: torch.Tensor, w_hwio: torch.Tensor, pads) -> torch.Tensor:

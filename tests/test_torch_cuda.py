@@ -672,23 +672,89 @@ DW_BF16_IDS = (
 )
 
 
+def _dw_launches():
+    return blocked_dw.launches, blocked_dw.launches_bf16, blocked_dw.launches_bf16_mma_sync
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", DW_BF16_CASES, ids=DW_BF16_IDS)
 def test_blocked_dw_bf16_matches_plain_on_cuda(cuda_device, case):
     """bf16 z and dy: every product is exact in float32, so the kernel
     differs from the plain version (which promotes to float32) only in the
     order of float32 sums over up to 557k terms: rtol 1e-4, atol 1e-4 *
-    max|plain|, as the float32 instance."""
+    max|plain|, as the float32 instance.  Channels that are multiples of 8
+    on 16-byte aligned pointers go to the wgmma kernel, the others to the
+    mma.sync one."""
     B, T, ci, co, kb, dc, offset = case
     z, dy = _dw_inputs_bf16(B, T, ci, co, cuda_device, offset=offset)
-    before = (blocked_dw.launches, blocked_dw.launches_bf16)
+    wgmma = ci % 8 == 0 and co % 8 == 0 and offset % 8 == 0
+    before = _dw_launches()
     got = blocked_dw.blocked_dw(z, dy, kb, dc)
     torch.cuda.synchronize()
-    assert (blocked_dw.launches, blocked_dw.launches_bf16) == (before[0], before[1] + 1)
+    assert _dw_launches() == (before[0], before[1] + wgmma, before[2] + (not wgmma))
     assert got.dtype == torch.float32
     ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
     assert torch.equal(blocked_dw.blocked_dw(z, dy, kb, dc), got)
+
+
+# (B, T, Ci, Co, KB, dc): V2's 14 layers at 64 x 8 s; channels not
+# multiples of 64 (a tile mostly past C), one tile, and one stage a split
+DW_WGMMA_CASES = (
+    [(64, 512, ci, co, 4, 2) for ci, co in V2_DW_SHAPES]
+    + [(3, 37, 24, 16, 4, 2), (3, 37, 200, 184, 4, 2), (3, 37, 72, 88, 8, 3), (1, 8, 8, 8, 1, 0),
+       (2, 9, 136, 8, 5, 4)]
+)
+DW_WGMMA_IDS = ([f"v2_{ci}x{co}_64x512" for ci, co in V2_DW_SHAPES]
+                + ["ci24_co16", "ci200_co184", "ci72_co88_kb8", "one_stage", "ci136_co8_kb5"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_WGMMA_CASES, ids=DW_WGMMA_IDS)
+def test_blocked_dw_wgmma_matches_plain_on_cuda(cuda_device, case):
+    """The wgmma kernel (one launch, none of the other kernels) against the
+    plain version within DW_TOL, and a second launch equal bit for bit."""
+    B, T, ci, co, kb, dc = case
+    z, dy = _dw_inputs_bf16(B, T, ci, co, cuda_device)
+    assert blocked_dw.takes_wgmma(z, dy, kb)
+    before = _dw_launches()
+    got = blocked_dw.blocked_dw(z, dy, kb, dc)
+    torch.cuda.synchronize()
+    assert _dw_launches() == (before[0], before[1] + 1, before[2])
+    ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+    assert torch.equal(blocked_dw.blocked_dw(z, dy, kb, dc), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_BF16_CASES, ids=DW_BF16_IDS)
+def test_blocked_dw_mma_sync_matches_plain_on_cuda(cuda_device, case):
+    """The bf16 mma.sync kernel through `blocked_dw_mma_sync`, whatever the
+    shape: the same tolerance, a repeat bit for bit."""
+    B, T, ci, co, kb, dc, offset = case
+    z, dy = _dw_inputs_bf16(B, T, ci, co, cuda_device, offset=offset)
+    before = _dw_launches()
+    got = blocked_dw.blocked_dw_mma_sync(z, dy, kb, dc)
+    torch.cuda.synchronize()
+    assert _dw_launches() == (before[0], before[1], before[2] + 1)
+    ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+    assert torch.equal(blocked_dw.blocked_dw_mma_sync(z, dy, kb, dc), got)
+
+
+@pytest.mark.cuda
+def test_blocked_dw_bf16_raises_on_mixed_dtypes_on_cuda(cuda_device):
+    """A bf16 z with a float32 dy (and the reverse) raises in both
+    functions before any launch."""
+    z, dy = _dw_inputs_bf16(2, 9, 24, 16, cuda_device)
+    before = _dw_launches()
+    for fn in (blocked_dw.blocked_dw, blocked_dw.blocked_dw_mma_sync):
+        for pair in ((z, dy.float()), (z.float(), dy)):
+            with pytest.raises(ValueError):
+                fn(*pair, 4, 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        blocked_dw.blocked_dw_mma_sync(z.float(), dy.float(), 4, 2)
+    assert _dw_launches() == before
 
 
 @pytest.mark.cuda
@@ -702,7 +768,7 @@ def test_blocked_freq_conv_bf16_rounds_dw_to_bf16_on_cuda(cuda_device):
     (blocked_dw.blocked_freq_conv(z, w.to(torch.bfloat16), 2).float() * g.float()).sum().backward()
     assert w.grad.dtype == torch.float32 and z.grad.dtype == torch.bfloat16
     assert torch.equal(w.grad, blocked_dw.blocked_dw(z0, g, 4, 2).to(torch.bfloat16).float())
-    before = blocked_dw.launches_bf16
+    before = _dw_launches()
     with pytest.raises(ValueError, match="two float32 or two bfloat16"):
         blocked_dw.blocked_dw(z0, g.float(), 4, 2)
-    assert blocked_dw.launches_bf16 == before
+    assert _dw_launches() == before
