@@ -15,8 +15,10 @@ for an H100) and `nvcc`.  It imports only the port
      decode, resample, mixing, PESQ) and a probe of mma.sync's TF32 and
      bf16 rates and of wgmma's bf16 rate (MMA_RATE_SRC), measured once here
      and used by phases 7, 7b, 11 and 11c (both kernels issue mma.sync in
-     3xTF32, the stack's bf16 mode mma.sync in bf16, the bf16 dW kernel
-     wgmma);
+     3xTF32, conv_layer_bf16 mma.sync in bf16, the bf16 stack and dW
+     kernels wgmma); and holds wgmma's K-major descriptors without swizzle,
+     as the bf16 stack kernel builds them, against their model
+     (WG_PROBE_CASES: overlapping and pad blocks among them), exactly;
 
   The serving path (the fused inference kernel, `rced_stack`):
   3. builds two V2 inference engines at full width from one npz of random
@@ -39,14 +41,19 @@ for an H100) and `nvcc`.  It imports only the port
      device-busy time (from torch.profiler) through both engines;
  7b. the stack's bf16 operand mode, which `fused_inference_forward(dtype=
      "bfloat16")` reaches (as in JAX, no engine or config routes to it):
-     the three requests through it with its bf16 launch count set to 0
-     just before and read just after (3), each output within 0.05 * max of
-     the float32 fused forward's; the kernel against its plain bf16 mode
-     for V1/V2/V3 at B=2, T=70 and T=45 and at 64 x 8 s (median
-     difference within 1e-6 of max|plain|, none past 2^-6 of it: see
-     BF16_STACK_*), one inner layer at rtol 1e-4, atol 1e-5 * max|plain|;
-     its time at 64 x 8 s beside the 3xTF32 kernel, the plain bf16 mode,
-     cuDNN's stack in bf16, the bf16 bound and mma.sync's bf16 floor;
+     the three requests through it with both bf16 launch counts set to 0
+     just before and read just after (3 of the wgmma kernel, 0 of
+     conv_layer_bf16), each output within 0.05 * max of the float32 fused
+     forward's; the wgmma kernel against its plain bf16 mode and against
+     conv_layer_bf16 (`stack_forward_mma_sync`) at the requests' B=1 shapes,
+     for V1/V2/V3 at B=2, T=70 and T=45 and at 64 x 8 s (median difference
+     within 1e-6 of max|plain|, none past 2^-6 of it: see BF16_STACK_*),
+     each launch repeated bit for bit, one inner layer at rtol 1e-4, atol
+     1e-5 * max|plain| (both kernels); its time at 64 x 8 s beside
+     conv_layer_bf16, the 3xTF32 kernel, the plain bf16 mode and cuDNN's
+     stack in bf16, the bf16 bound, its padded products and the floor
+     wgmma's rate sets, conv_layer_bf16's mma.sync floor, and both launch
+     plans;
 
   The training path (the blocked dW kernel, `blocked_dw`):
   8. writes a corpus (512 speech-like utterances of 6.5-8.0 s, all in the
@@ -154,7 +161,9 @@ for an H100) and `nvcc`.  It imports only the port
      1e-2 (the differences are logged), PESQ `p862-native`, 256 `_de.wav`
      files each;
  16. prints a `kernels` JSON line (six entries: `rced_stack` and
-     `blocked_dw` in float32 and in bf16, each with its "dtype", then
+     `blocked_dw` in float32 and in bf16, each with its "dtype", the bf16
+     `rced_stack` the wgmma kernel with conv_layer_bf16's time as
+     `mma_sync_ms`, then
      `freq_conv` and `freq_conv_stack`; the float32 `rced_stack`'s
      launches are the serving path's and the evaluation path's, each also
      by path, and its max_abs_err covers phases 6, 7 and 15), the card
@@ -423,7 +432,7 @@ def stack_work(packed, B, T):
     return flop, nbytes
 
 
-def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float):
+def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float, rate_wgmma: float):
     """Phases 3-7b: the serving path through the fused kernel, then the
     stack's bf16 mode.  Returns the `rced_stack` entries of the `kernels`
     line, float32 and bf16."""
@@ -614,12 +623,24 @@ def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float):
         },
     }
     t0 = time.perf_counter()
-    entry_bf16 = run_stack_bf16(dev, fused, requests, rate_bf16, pk)
+    entry_bf16 = run_stack_bf16(dev, fused, requests, rate_bf16, rate_wgmma, pk)
     phase("stack bf16 mode", t0)
     return entry, entry_bf16
 
 
-def run_stack_bf16(dev, fused, requests, rate_bf16: float, pk32) -> dict:
+def against_mma_sync(name, pk, x, got) -> float:
+    """Holds the wgmma kernel's output `got` on `x` against conv_layer_bf16
+    (`stack_forward_mma_sync`, BF16_STACK_*) and a second launch of the
+    wgmma kernel (bit for bit); returns the largest difference from
+    conv_layer_bf16."""
+    from fullycnnspeechenhancement_torch.ops import rced_stack
+
+    if not torch.equal(rced_stack.stack_forward(pk, x), got):
+        raise AssertionError(f"{name}: a second launch of the wgmma kernel differs")
+    return check_bf16_stack(f"{name} vs conv_layer_bf16", got, rced_stack.stack_forward_mma_sync(pk, x))
+
+
+def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk32) -> dict:
     """Phase 7b: the fused stack's bf16 operand mode, which
     `fused_inference_forward(dtype="bfloat16")` reaches (as in JAX, no
     engine or config routes to it).  The main path: the three requests'
@@ -645,14 +666,17 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, pk32) -> dict:
         wav = torch.zeros(1, fused._pad_len(len(sig)), device=dev)
         wav[0, : len(sig)] = torch.as_tensor(sig, device=dev)
         mags.append(fused.ext(wav, torch.tensor([len(sig)], dtype=torch.int32, device=dev)))
-    rced_stack.launches_bf16 = 0
+    if not rced_stack.takes_wgmma(pk):
+        raise AssertionError("V2's bf16 pack does not take the wgmma kernel")
+    rced_stack.launches_bf16 = rced_stack.launches_bf16_wgmma = 0
     outs = [rced_stack.fused_inference_forward(model, params, bn, mag, packed=pk, dtype="bfloat16")
             for mag in mags]
     torch.cuda.synchronize()
-    launches = rced_stack.launches_bf16
-    log(f"stack bf16 main path: rced_stack bf16 launches {launches}")
-    if launches != len(mags):
-        raise AssertionError(f"rced_stack bf16 launched {launches} times for {len(mags)} calls")
+    launches, launches_old = rced_stack.launches_bf16_wgmma, rced_stack.launches_bf16
+    log(f"stack bf16 main path: rced_stack bf16 launches {launches} (wgmma kernel), {launches_old} (conv_layer_bf16)")
+    if launches != len(mags) or launches_old != 0:
+        raise AssertionError(f"rced_stack bf16 launched the wgmma kernel {launches} times and conv_layer_bf16 "
+                             f"{launches_old} times for {len(mags)} calls, expected {len(mags)} and 0")
     max_err = 0.0
     for mag, out in zip(mags, outs):
         ref = rced_stack.fused_inference_forward(model, params, bn, mag, packed=pk32)
@@ -662,10 +686,12 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, pk32) -> dict:
             raise AssertionError(f"fused bf16 T={mag.shape[1]}: {err:.3e} from float32, max {scale:.3e}")
         # the kernel at the main path's own B=1 shape, against its plain bf16 mode
         y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
-        e = check_bf16_stack(f"V2 B=1 T={mag.shape[1]} bf16", rced_stack.stack_forward(pk, y1),
-                             rced_stack.stack_forward_plain(pk, y1))
+        got = rced_stack.stack_forward(pk, y1)
+        e = check_bf16_stack(f"V2 B=1 T={mag.shape[1]} bf16", got, rced_stack.stack_forward_plain(pk, y1))
+        e_old = against_mma_sync(f"V2 B=1 T={mag.shape[1]}", pk, y1, got)
         max_err = max(max_err, e)
-        log(f"kernel bf16 V2 B=1 T={mag.shape[1]}: max abs err vs plain bf16 {e:.3e}")
+        log(f"kernel bf16 V2 B=1 T={mag.shape[1]}: max abs err vs plain bf16 {e:.3e}, vs conv_layer_bf16 "
+            f"{e_old:.3e}; repeats bit for bit")
 
     for name in ("FullyCNN", "FullyCNNV2", "FullyCNNV3"):
         m = get_model(name)
@@ -678,11 +704,12 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, pk32) -> dict:
             y1 = torch.relu(conv2d_same(mag[:, None], *pkb.first[1:])).contiguous()
             got = rced_stack.stack_forward(pkb, y1)
             e = check_bf16_stack(f"{name} T={T} bf16", got, rced_stack.stack_forward_plain(pkb, y1))
+            e_old = against_mma_sync(f"{name} T={T}", pkb, y1, got)
             f32 = rced_stack.stack_forward_plain(pkf, y1)
             if (got - f32).abs().max() > 0.05 * f32.abs().max():
                 raise AssertionError(f"{name} T={T}: bf16 stack past 0.05 * max of float32")
             max_err = max(max_err, e)
-            log(f"kernel bf16 {name} B=2 T={T}: max abs err vs plain bf16 {e:.3e}")
+            log(f"kernel bf16 {name} B=2 T={T}: max abs err vs plain bf16 {e:.3e}, vs conv_layer_bf16 {e_old:.3e}")
     one = ModelDef("one_layer", (ConvSpec("a", 19, (8, 5)), ConvSpec("b", 32, (1, 13)),
                                  ConvSpec("c", 1, (1, 129), use_norm=False, use_act=False)))
     p1, s1 = one.init(torch.Generator().manual_seed(3), device=dev)
@@ -690,14 +717,20 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, pk32) -> dict:
     x1 = torch.rand(2, 19, 45, 129, generator=torch.Generator().manual_seed(5)).to(dev)
     ref1 = rced_stack.stack_forward_plain(pk1, x1)
     e = check_close("one layer bf16", rced_stack.stack_forward(pk1, x1), ref1, 1e-4, 1e-5 * ref1.abs().max().item())
+    e_old = check_close("one layer bf16 conv_layer_bf16", rced_stack.stack_forward_mma_sync(pk1, x1), ref1, 1e-4,
+                        1e-5 * ref1.abs().max().item())
     max_err = max(max_err, e)
-    log(f"kernel bf16 one layer (kw 13, 19 -> 32 channels): max abs err vs plain bf16 {e:.3e}")
+    log(f"kernel bf16 one layer (kw 13, 19 -> 32 channels): max abs err vs plain bf16 {e:.3e} "
+        f"(conv_layer_bf16 {e_old:.3e})")
 
     B, T = 64, fused.ext.num_frames(8 * 8000)
     mag = torch.as_tensor(np.random.default_rng(7).random((B, T, 129), dtype=np.float32), device=dev)
     y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
     got = rced_stack.stack_forward(pk, y1)
     e = check_bf16_stack(f"V2 B={B} T={T} bf16", got, rced_stack.stack_forward_plain(pk, y1))
+    e_old = against_mma_sync(f"V2 B={B} T={T}", pk, y1, got)
+    log(f"kernel bf16 V2 B={B} T={T}: max abs err vs plain bf16 {e:.3e}, vs conv_layer_bf16 {e_old:.3e}; "
+        f"repeats bit for bit")
     max_err = max(max_err, e)
     f32 = rced_stack.stack_forward(pk32, y1)
     if (got - f32).abs().max() > 0.05 * f32.abs().max():
@@ -706,25 +739,37 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, pk32) -> dict:
     folded16 = [(spec, w.to(torch.bfloat16), b.to(torch.bfloat16)) for spec, w, b in folded]
     y1_16 = y1.to(torch.bfloat16)
     del got, f32
+    # in turns: the wgmma kernel, conv_layer_bf16, the others, then both again
     kernel_ms = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
+    old_ms = cuda_ms(lambda: rced_stack.stack_forward_mma_sync(pk, y1), reps=20)
     f32_ms = cuda_ms(lambda: rced_stack.stack_forward(pk32, y1), reps=20)
     plain_ms = cuda_ms(lambda: rced_stack.stack_forward_plain(pk, y1), reps=3, warmup=1)
     cudnn_ms = cuda_ms(lambda: inner_stack_cudnn(folded16, y1_16), reps=10)
+    old_ms_2 = cuda_ms(lambda: rced_stack.stack_forward_mma_sync(pk, y1), reps=20)
     kernel_ms_2 = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
     flop, nbytes = stack_work(pk, B, T)
     t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
-    plan = rced_stack.launch_plan(pk, rced_stack.card_blocks_per_sm(pk.smem_floats * 4, dev, "bfloat16"))
-    padded = plan.padded_product_ratio
-    floor_ms = flop * padded / (rate_bf16 * 1e12) * 1e3
-    log(f"timing V2 inner stack bf16 at {B} x 8 s (T={T}): kernel {kernel_ms:.3f} / {kernel_ms_2:.3f} ms, "
-        f"3xTF32 kernel {f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, cuDNN layer by layer in bf16 "
-        f"{cudnn_ms:.3f} ms")
+    plan = rced_stack.wgmma_launch_plan(pk, B * T, rced_stack.card_wgmma_blocks_per_sm(pk.wg.smem_bytes, dev),
+                                        torch.cuda.get_device_properties(0).multi_processor_count)
+    # the wgmma tiles' products at wgmma's rate, the edge warp's at mma.sync's
+    padded, by_wgmma, by_edge = rced_stack.wgmma_padded_product_ratio(pk)
+    floor_ms = flop * (by_wgmma / rate_wgmma + by_edge / rate_bf16) / 1e12 * 1e3
+    old_plan = rced_stack.launch_plan(pk, rced_stack.card_blocks_per_sm(pk.smem_floats * 4, dev, "bfloat16"))
+    old_padded = old_plan.padded_product_ratio
+    old_floor_ms = flop * old_padded / (rate_bf16 * 1e12) * 1e3
+    log(f"timing V2 inner stack bf16 at {B} x 8 s (T={T}): wgmma kernel {kernel_ms:.3f} / {kernel_ms_2:.3f} ms, "
+        f"conv_layer_bf16 (mma.sync) {old_ms:.3f} / {old_ms_2:.3f} ms ({old_ms / kernel_ms:.2f}x), 3xTF32 kernel "
+        f"{f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, cuDNN layer by layer in bf16 {cudnn_ms:.3f} ms")
     log(f"bound bf16: {flop:.4e} FLOP -> {t_ops:.3f} ms at 989 TFLOP/s; {nbytes:.4e} B -> {t_bytes:.3f} ms "
-        f"at 3.35 TB/s; kernel at {100 * bound_ms / kernel_ms:.1f}% of it; m16n8k16 tiles pad the products "
-        f"{padded:.4f}x, at mma.sync's bf16 {rate_bf16:.1f} TFLOP/s the floor is {floor_ms:.3f} ms "
-        f"(kernel at {100 * floor_ms / kernel_ms:.1f}% of it)")
-    log(f"launch plan bf16 (one block per frame, {B * T} blocks at {B} x 8 s): {plan._asdict()}")
+        f"at 3.35 TB/s; wgmma kernel at {100 * bound_ms / kernel_ms:.1f}% of it; its tiles pad the products "
+        f"{padded:.4f}x ({by_wgmma:.4f}x by wgmma, {by_edge:.4f}x by the edge warp's mma.sync), at wgmma's "
+        f"{rate_wgmma:.1f} and mma.sync's {rate_bf16:.1f} TFLOP/s (phase 2) a floor of {floor_ms:.3f} ms (kernel "
+        f"at {100 * floor_ms / kernel_ms:.1f}% of it); conv_layer_bf16's m16n8k16 tiles pad them {old_padded:.4f}x, "
+        f"at mma.sync's bf16 {rate_bf16:.1f} TFLOP/s a floor of {old_floor_ms:.3f} ms "
+        f"(conv_layer_bf16 at {100 * old_floor_ms / old_ms:.1f}% of it)")
+    log(f"launch plan bf16, wgmma kernel ({B * T} frames at {B} x 8 s): {plan._asdict()}")
+    log(f"launch plan bf16, conv_layer_bf16: {old_plan._asdict()}")
     return {
         "name": "rced_stack",
         "dtype": "bfloat16",
@@ -740,9 +785,20 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, pk32) -> dict:
         "library_ms": None,
         "cudnn_stack_bf16_ms": cudnn_ms,
         "float32_kernel_ms": f32_ms,
+        # conv_layer_bf16, the mma.sync design this kernel replaced on the
+        # main path, timed beside it
+        "mma_sync_ms": old_ms,
         "mma_sync_bf16_tflops": rate_bf16,
-        # computed from this run's inputs and the rate above, not timed
-        "derived": {"padded_product_ratio": padded, "mma_sync_floor_ms": floor_ms},
+        "wgmma_bf16_tflops": rate_wgmma,
+        # computed from this run's inputs and the rates above, not timed
+        "derived": {
+            "padded_product_ratio": padded,
+            "padded_product_ratio_wgmma": by_wgmma,
+            "padded_product_ratio_edge_mma_sync": by_edge,
+            "wgmma_floor_ms": floor_ms,
+            "mma_sync_padded_product_ratio": old_padded,
+            "mma_sync_floor_ms": old_floor_ms,
+        },
     }
 
 
@@ -2086,6 +2142,38 @@ extern "C" int wgmma_rate_launch(float* out, int blocks, int iters) {
   wgmma_rate<<<blocks, 256, smem>>>(out, iters);
   return (int)cudaGetLastError();
 }
+// One wgmma.m64n8k16 with both operands K-major without swizzle, read
+// from an image the host writes into shared memory under the descriptors
+// it gives (start, leading- and stride-byte offsets, in bytes from the
+// image), as rced_stack.cu's bf16 kernel builds them: D[m][n] lands in
+// out[8 m + n].
+__global__ void __launch_bounds__(128) wgmma_desc_probe(const uint4* img, int units, const uint32_t* d,
+                                                        float* out) {
+  extern __shared__ uint4 image[];
+  for (int i = threadIdx.x; i < units; i += 128) image[i] = img[i];
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(image);
+  uint64_t desc[2];
+  for (int o = 0; o < 2; ++o)
+    desc[o] = (uint64_t)(((base + d[3 * o]) >> 4) & 0x3FFF) | ((uint64_t)((d[3 * o + 1] >> 4) & 0x3FFF) << 16) |
+              ((uint64_t)((d[3 * o + 2] >> 4) & 0x3FFF) << 32);
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3]) : "l"(desc[0]), "l"(desc[1]), "r"(1));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("" : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])::"memory");
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  for (int e = 0; e < 4; ++e) out[(16 * w + l / 4 + 8 * (e / 2)) * 8 + 2 * (l % 4) + (e % 2)] = c[e];
+}
+extern "C" int wgmma_desc_probe_launch(const void* img, int units, const uint32_t* d, float* out) {
+  cudaFuncSetAttribute(wgmma_desc_probe, cudaFuncAttributeMaxDynamicSharedMemorySize, units * 16);
+  wgmma_desc_probe<<<1, 128, units * 16>>>((const uint4*)img, units, d, out);
+  return (int)cudaGetLastError();
+}
 """
 
 
@@ -2133,6 +2221,62 @@ def wgmma_tflops(lib_path: str) -> float:
         raise RuntimeError("wgmma_rate launch failed")
     ms = cuda_ms(lambda: launch(out.data_ptr(), blocks, iters), reps=3, warmup=1)
     return blocks * 2 * iters * 40 * 2 * 64 * 64 * 16 / ms / 1e9
+
+
+# The descriptor probe's cases (A's start, leading- and stride-byte offsets,
+# in bytes; B at WG_PROBE_B with offsets 128 and 128, the layout of
+# rced_stack.cu's B at n = 8): K-major without swizzle, core matrices of 8
+# rows of 16 bytes, the stride-byte offset between the 8-row groups along
+# M and the leading-byte offset between the two k8 halves, as the bf16
+# stack kernel reads its shadow: two channel groups of one tap (135 rows
+# apart), two taps of one group (16 bytes apart: the core matrices
+# overlap), a pad block (offset 0), a tap-crossing pair, all from starts
+# not on a 128-byte line.
+WG_PROBE_CASES = {
+    "two_groups": (16 * 7, 2160, 128),
+    "two_taps_overlapping": (16 * 7, 16, 128),
+    "pad_block_lbo_0": (16 * 3, 0, 128),
+    "tap_crossing": (16 * 9, 3 * 2160 - 16, 128),
+}
+WG_PROBE_B = 12288
+WG_PROBE_BYTES = 16384
+
+
+def wgmma_descriptor_probe(lib_path: str) -> dict:
+    """Runs MMA_RATE_SRC's descriptor probe on each WG_PROBE_CASES case on
+    an image of small integers (every product and sum exact in float32)
+    and holds the result, exactly, against the product the model of the
+    descriptor gives: A[m][k] at start + 16 (m % 8) + SBO (m // 8) + LBO
+    (k // 8) + 2 (k % 8), and B[n][k] likewise.  Raises on a difference;
+    returns each case's largest one (0)."""
+    import ctypes
+
+    launch = ctypes.CDLL(lib_path).wgmma_desc_probe_launch
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    rng = np.random.default_rng(0)
+    vals = torch.as_tensor(rng.integers(-4, 5, WG_PROBE_BYTES // 2).astype(np.float32)).to(torch.bfloat16)
+    img = vals.view(torch.uint8)
+
+    def read(start, lbo, sbo, rows):
+        r, k = np.meshgrid(np.arange(rows), np.arange(16), indexing="ij")
+        at = start + 16 * (r % 8) + sbo * (r // 8) + lbo * (k // 8) + 2 * (k % 8)
+        return vals[torch.as_tensor(at // 2)].float()
+
+    out = {}
+    for name, (start, lbo, sbo) in WG_PROBE_CASES.items():
+        d = torch.tensor([start, lbo, sbo, WG_PROBE_B, 128, 128], dtype=torch.int32, device="cuda")
+        got = torch.full((64 * 8,), float("nan"), device="cuda")
+        img_d = img.to("cuda")
+        if launch(img_d.data_ptr(), WG_PROBE_BYTES // 16, d.data_ptr(), got.data_ptr()) != 0:
+            raise RuntimeError(f"wgmma descriptor probe {name}: launch failed")
+        torch.cuda.synchronize()
+        want = read(start, lbo, sbo, 64) @ read(WG_PROBE_B, 128, 128, 8).t()
+        err = (got.cpu().view(64, 8) - want).abs().max().item()
+        if not err == 0.0:
+            raise AssertionError(f"wgmma descriptor probe {name} (start {start}, LBO {lbo}, SBO {sbo}): "
+                                 f"max abs err {err} against the model of the descriptor")
+        out[name] = err
+    return out
 
 
 def build_kernels() -> str:
@@ -2205,10 +2349,13 @@ def main() -> int:
     rate_wgmma = wgmma_tflops(rate_lib)
     log(f"mma.sync m16n8k8 TF32 alone: {mma_rate:.1f} TFLOP/s; m16n8k16 bf16 alone: {rate_bf16:.1f} TFLOP/s; "
         f"wgmma m64n64k16 bf16 (shared-memory operands) alone: {rate_wgmma:.1f} TFLOP/s")
+    probe = wgmma_descriptor_probe(rate_lib)
+    log("wgmma K-major descriptors without swizzle (rced_stack.cu's bf16 kernel) against their model, max abs "
+        "err: " + json.dumps(probe))
     phase("build", t0)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        stack_entry, stack_bf16_entry = run_serving(dev, tmp, mma_rate, rate_bf16)
+        stack_entry, stack_bf16_entry = run_serving(dev, tmp, mma_rate, rate_bf16, rate_wgmma)
         phase("serving", t0)
         dw_entry, last_checkpoint, train_ctx = run_training(dev, tmp, mma_rate)
         dw_bf16_entry = run_training_bf16(dev, tmp, train_ctx, rate_bf16, rate_wgmma)

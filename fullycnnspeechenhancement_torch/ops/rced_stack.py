@@ -23,22 +23,29 @@ FIRST conv looks across time; every later layer but the last is a per-frame
     shared-memory offset (`tap_offsets`);
   * the final (1, 129) projection runs as a cuDNN conv.
 
-`dtype="bfloat16"` is the JAX kernel's bf16 operand mode: the folded
-weights are packed in bf16 (`pack_fragments_bf16`) and each layer's input
-slab is rounded to bf16 where it meets them; the products are exact and
-summed in float32, and the slabs, biases, skips and residuals stay
-float32.  Layer 1 and the last projection stay float32 convs, as in JAX.
+`dtype="bfloat16"` is the JAX kernel's bf16 operand mode: each layer's
+input is rounded to bf16 where it meets the folded bf16 weights; the
+products are exact and summed in float32, and the slabs, biases, skips and
+residuals stay float32.  Layer 1 and the last projection stay float32
+convs, as in JAX.  Its kernel is `rced_stack_wgmma_kernel` (`pack_wgmma`:
+each layer's chunk of B tiles, biases and A descriptor table, and the
+block's shared-memory map) wherever `wgmma_layout` takes the shapes, as it
+takes every V1/V2/V3 pack (`takes_wgmma`); other bf16 packs run the
+earlier `mma.sync` body, `conv_layer_bf16` (`pack_fragments_bf16`), which
+`stack_forward_mma_sync` also reaches by name.
 
-`stack_forward` is the kernel's wrapper: on a CPU tensor it runs
+`stack_forward` is the kernels' wrapper: on a CPU tensor it runs
 `stack_forward_plain`, the same arithmetic in plain torch; on a CUDA tensor
-it launches the kernel (building it on first use) or raises.  `launches`
-counts kernel launches.
+it launches the kernel (building it on first use) or raises.  `launches`,
+`launches_bf16` (conv_layer_bf16) and `launches_bf16_wgmma` count kernel
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -67,16 +74,44 @@ MAX_LAYERS = 16
 MAX_COUT = 32  # four n8 tiles
 SMEM_BYTES = 232_448  # the most shared memory one Hopper block can use
 SM_SMEM_BYTES = 233_472  # shared memory of one SM; each block also takes 1 KiB
+SM_COUNT = 132  # an H100 SXM's SMs, for plans modelled without a card
 # Floats after the last row: the padded bin 143 reads up to HALO + 6 + 143
 # floats past its row's start.
 SMEM_SLACK = 2 * HALO + M_PAD - ROW
 TF32_MASK = -8192  # 0xffffe000 as int32: clears the 13 low mantissa bits
 INPUT = "__input__"
 
+# The bf16 kernel on wgmma (csrc `rced_stack_wgmma_kernel`): two m64
+# tiles over bins 0..127, one warpgroup each, and an edge warp for bin 128
+# (an m16 tile of mma.sync); a bf16 operand copy (the shadow) of each
+# layer's input, [channel group of 8][bin row][8 channels], WG_ROWS rows a
+# group (bins 0..128, then 6 zero rows that are the next group's left
+# halo), WG_LEAD zero rows before group 0 and WG_SLACK after the last
+# (read by the edge warp's padded rows; the first is the row an epilogue
+# dumps values that must not land into); float32 rows of WG_F32_ROW
+# floats for the values a later epilogue reads.
+WG_TILES = 2
+WG_M = 64
+WG_EDGE_M = 16  # bins 128..143, of which 128 is real, by mma.sync
+WG_THREADS = 128 * WG_TILES + 32
+WG_LEAD = HALO
+WG_ROWS = F_DIM + HALO
+WG_SLACK = 16
+WG_ROW_BYTES = 16  # one shadow row: 8 bf16 channels
+WG_F32_ROW = 132  # 4 mod 32 floats: an epilogue's float32 loads and stores are free of bank conflicts
+WG_REC = 12
+# Two blocks an SM (each also takes 1 KiB): the most one block may use.
+WG_SMEM_BUDGET = SM_SMEM_BYTES // 2 - 1024
+WG_BARRIER_BYTES = 16  # two mbarriers, one for each weight buffer
+# The A descriptor's leading-byte offset of an instruction's pad block (its
+# weights are zero): 0, it reads its first block again.
+WG_PAD_LBO = 0
+
 # Kernel launches since the counts were last set to 0: the 3xTF32
-# instance and the bf16 one.
+# instance, the bf16 mma.sync one (conv_layer_bf16) and the bf16 wgmma one.
 launches = 0
 launches_bf16 = 0
+launches_bf16_wgmma = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -152,6 +187,8 @@ class PackedStack:
     out_row: int
     smem_rows: int
     dtype: str = "float32"  # the operand mode, one of DTYPES
+    # the bf16 wgmma kernel's pack, where `wgmma_layout` takes the shapes
+    wg: Optional["WgmmaStack"] = None
 
     @property
     def c_in(self) -> int:
@@ -166,18 +203,22 @@ class PackedStack:
         return self.smem_rows * ROW + SMEM_SLACK
 
 
-def _allocate_rows(layers, c_in):
+def _allocate_rows(layers, c_in, epilogue_reads_only=False):
     """Place each value (the input, each layer's output) at a row offset in
     shared memory for as long as it is live: a value dies after its last
     reader (the next layer, or a later skip/add).  First fit; an output
-    never overlaps a value its own layer reads.  Returns (rows of each
-    value, rows used)."""
-    last_use = {INPUT: 0}
+    never overlaps a value its own layer reads.  With
+    `epilogue_reads_only` (the wgmma kernel's float32 rows) only the values
+    a later epilogue reads (skip and residual sources, until their last
+    reader) and the stack's output are placed.  Returns (rows of each
+    placed value, rows used)."""
+    last_use = {} if epilogue_reads_only else {INPUT: 0}
     for i, lay in enumerate(layers):
-        last_use[lay.name] = i + 1  # the last one: kept to the copy-out
+        if not epilogue_reads_only or i == len(layers) - 1:
+            last_use[lay.name] = i + 1  # the last one: kept to the copy-out
         for ref in (lay.skip_from, lay.add_from):
             if ref is not None:
-                last_use[ref] = max(last_use[ref], i)
+                last_use[ref] = max(last_use.get(ref, i), i)
     live = {}  # name -> (start, size)
     where = {}
     used = 0
@@ -195,9 +236,11 @@ def _allocate_rows(layers, c_in):
         where[name] = start
         used = max(used, start + size)
 
-    place(INPUT, c_in, -1)
+    if INPUT in last_use:
+        place(INPUT, c_in, -1)
     for i, lay in enumerate(layers):
-        place(lay.name, lay.cout, i)
+        if lay.name in last_use:
+            place(lay.name, lay.cout, i)
     return where, used
 
 
@@ -269,6 +312,200 @@ def unpack_fragments_bf16(frag: torch.Tensor, chunks: int, n_tiles: int) -> torc
     bfloat16."""
     parts = frag.contiguous().view(torch.bfloat16).view(chunks, n_tiles, N_TILE, 4, 2, 2)
     return parts.permute(0, 4, 5, 3, 1, 2).reshape(chunks * K_CHUNK_BF16, n_tiles * N_TILE)
+
+
+# -- the bf16 kernel on wgmma ---------------------------------------------------
+
+
+def wg_block_row(j: int, g: int, kw: int) -> int:
+    """The shadow row (counted from the lead) where the A of k8 block (tap
+    j, channel group g) starts, the row bin 0 reads: bin f of tap j reads
+    input bin f + j - lo of group g."""
+    return WG_LEAD + g * WG_ROWS + j - (kw - 1) // 2
+
+
+def wg_instructions(cin: int, kw: int):
+    """The layer's k16 instructions: its k8 blocks (tap j, channel group g)
+    tap-outer and group-inner, paired in that order, each pair ordered so
+    that its second block starts at the later shadow row (a descriptor's
+    leading-byte offset is unsigned); an odd count ends in a pad block
+    (None) of zero weights.  -> [(first, second)] of (j, g) or None."""
+    blocks = [(j, g) for j in range(kw) for g in range(-(-cin // 8))]
+    if len(blocks) % 2:
+        blocks.append(None)
+    pairs = []
+    for a, b in zip(blocks[::2], blocks[1::2]):
+        if b is not None and wg_block_row(*b, kw) < wg_block_row(*a, kw):
+            a, b = b, a
+        pairs.append((a, b))
+    return pairs
+
+
+def wg_table(cin: int, kw: int) -> np.ndarray:
+    """The A descriptor of each instruction for tile 0, [instructions]
+    int32: the first block's start row | (the leading-byte offset in rows,
+    the second block's row minus the first's, or WG_PAD_LBO) << 16.  A row
+    is 16 bytes, a descriptor's unit, so both are its fields' values; tile
+    t adds 64 t rows to the start."""
+    out = []
+    for a, b in wg_instructions(cin, kw):
+        start = wg_block_row(*a, kw)
+        lbo = WG_PAD_LBO if b is None else wg_block_row(*b, kw) - start
+        out.append(start | lbo << 16)
+    return np.asarray(out, dtype=np.int32)
+
+
+def wg_b_tiles(w: torch.Tensor, n: int) -> torch.Tensor:
+    """w [cin, kw, cout] -> the layer's B for wgmma, bf16 [instructions, 2
+    halves, n // 8 column groups, 8 columns, 8 k]: K-major without
+    swizzle, so one (half, column group) is a core matrix of 8 columns of
+    16 bytes; half h of instruction i holds its block h's 8 channels (zeros
+    past cin and cout, and for a pad block).  Its descriptor: leading-byte
+    offset 16 n (between halves), stride-byte offset 128 (between column
+    groups)."""
+    cin, kw, cout = w.shape
+    groups = -(-cin // 8)
+    wp = torch.zeros(kw, groups * 8, n, dtype=torch.float32, device=w.device)
+    wp[:, :cin, :cout] = w.permute(1, 0, 2)
+    halves = []
+    for pair in wg_instructions(cin, kw):
+        for blk in pair:
+            if blk is None:
+                halves.append(torch.zeros(8, n, dtype=torch.float32, device=w.device))
+            else:
+                j, g = blk
+                halves.append(wp[j, 8 * g : 8 * g + 8])  # [k, column]
+    tiles = torch.stack(halves).view(-1, 2, 8, n // 8, 8)  # [i, h, k, column group, column]
+    return tiles.permute(0, 1, 3, 4, 2).contiguous().to(torch.bfloat16)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8).reshape(-1)
+
+
+def pack_wg_chunk(w: torch.Tensor, bias: torch.Tensor, n: int) -> torch.Tensor:
+    """One layer's chunk for the wgmma kernel, the bytes one bulk copy
+    stages: its B tiles (`wg_b_tiles`), then n float32 biases (zeros past
+    cout), then its A table (`wg_table`), zero-padded to 16 bytes."""
+    cin, kw, cout = w.shape
+    b = torch.zeros(n, dtype=torch.float32, device=w.device)
+    b[:cout] = bias
+    table = torch.as_tensor(wg_table(cin, kw), device=w.device)
+    parts = [_bytes(wg_b_tiles(w, n)), _bytes(b), _bytes(table)]
+    pad = -sum(p.numel() for p in parts) % 16
+    parts.append(torch.zeros(pad, dtype=torch.uint8, device=w.device))
+    return torch.cat(parts)
+
+
+class WgField:
+    """Columns of WgmmaStack.plan (csrc WgField): instructions, n (cout
+    padded to 8), cout, the chunk's byte offset in `weights` and its bytes,
+    float offsets (in the float32 rows) of the layer's float32 output, its
+    skip and its residual source (-1: none), ReLU, cin, and the byte
+    offsets of the biases and the A table within the chunk."""
+
+    INSTR, N, COUT, CHUNK, CHUNK_BYTES, OUT, SKIP, ADD, RELU, CIN, BIAS, TABLE = range(WG_REC)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class WgmmaStack:
+    """The wgmma kernel's pack of a bf16 stack and its shared-memory map
+    (byte offsets from the block's base): two mbarriers, shadow 0 (layer
+    l reads shadow l % 2 and writes the other), shadow 1, the float32
+    rows (then 4 floats the epilogue dumps discarded values into), weight
+    buffer 0 (even layers' chunks) and buffer 1 (odd layers')."""
+
+    weights: torch.Tensor  # uint8, each layer's chunk at a 16-byte offset
+    plan: np.ndarray  # [n_layers, WG_REC] int32 (WgField)
+    groups: int  # channel groups of 8 a shadow holds
+    f32_rows: int
+    in_f32: int  # float offset of the input's float32 rows, -1 if none
+    out_f32: int  # float offset of the stack's output
+    buf_bytes: Tuple[int, int]
+
+    @property
+    def shadow_bytes(self) -> int:
+        return (WG_LEAD + self.groups * WG_ROWS + WG_SLACK) * WG_ROW_BYTES
+
+    def shadow_offset(self, s: int) -> int:
+        return WG_BARRIER_BYTES + s * self.shadow_bytes
+
+    @property
+    def f32_offset(self) -> int:
+        return WG_BARRIER_BYTES + 2 * self.shadow_bytes
+
+    @property
+    def dump(self) -> int:
+        """Float offset of the float32 word discarded values are written to."""
+        return self.f32_rows * WG_F32_ROW
+
+    @property
+    def buf_offsets(self) -> Tuple[int, int]:
+        b0 = self.f32_offset + 4 * (self.dump + 4)
+        return b0, b0 + self.buf_bytes[0]
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.buf_offsets[1] + self.buf_bytes[1]
+
+    def layout(self) -> np.ndarray:
+        """The kernel's map (csrc WgLayout): groups, shadow bytes, float32
+        offset, dump, input and output float offsets, both buffers, total."""
+        return np.array([self.groups, self.shadow_bytes, self.f32_offset, self.dump, self.in_f32,
+                         self.out_f32, *self.buf_offsets, self.smem_bytes], dtype=np.int32)
+
+
+def wgmma_layout(layers, c_in):
+    """The shape test of the wgmma kernel, in one place: None unless every
+    layer has at most 32 input and output channels and the block's shared
+    memory fits two blocks an SM (WG_SMEM_BUDGET); else (float32 rows of
+    each value that keeps them, float32 rows used, shadow groups, chunk
+    bytes of each layer, bytes of the two weight buffers, shared-memory
+    bytes)."""
+    if any(lay.cin > MAX_COUT or lay.cout > MAX_COUT for lay in layers):
+        return None
+    rows, used = _allocate_rows(layers, c_in, epilogue_reads_only=True)
+    groups = max(-(-lay.cin // 8) for lay in layers)
+    chunk = []
+    for lay in layers:
+        n = lay.n_tiles * N_TILE
+        instr = len(wg_instructions(lay.cin, lay.kw))
+        chunk.append(instr * 32 * n + 4 * n + -(-4 * instr // 16) * 16)
+    # global layer g's chunk lands in buffer g % 2: with an odd layer count
+    # a layer's parity changes from frame to frame
+    bufs = (max(chunk[0::2]), max(chunk[1::2], default=0)) if len(layers) % 2 == 0 else (max(chunk), max(chunk))
+    probe = WgmmaStack(torch.empty(0), np.zeros((0, WG_REC), np.int32), groups, used, -1, 0, bufs)
+    if probe.smem_bytes > WG_SMEM_BUDGET:
+        return None
+    return rows, used, groups, chunk, bufs, probe.smem_bytes
+
+
+def pack_wgmma(layers, plain, c_in) -> Optional[WgmmaStack]:
+    """The wgmma kernel's pack of inner `layers` with BN-folded weights
+    `plain` ([(w [cin, kw, cout], b)]), or None where `wgmma_layout` does
+    not take the shapes."""
+    fit = wgmma_layout(layers, c_in)
+    if fit is None:
+        return None
+    rows, used, groups, sizes, bufs, _ = fit
+
+    def f32_at(name):
+        return rows[name] * WG_F32_ROW if name is not None and name in rows else -1
+
+    chunks, plan, off = [], [], 0
+    for lay, (w, b), size in zip(layers, plain, sizes):
+        n = lay.n_tiles * N_TILE
+        chunk = pack_wg_chunk(w, b, n)
+        assert chunk.numel() == size
+        instr = len(wg_instructions(lay.cin, lay.kw))
+        plan.append([instr, n, lay.cout, off, size, f32_at(lay.name), f32_at(lay.skip_from),
+                     f32_at(lay.add_from), int(lay.use_act), lay.cin, instr * 32 * n, instr * 32 * n + 4 * n])
+        chunks.append(chunk)
+        off += size
+    return WgmmaStack(
+        weights=torch.cat(chunks), plan=np.asarray(plan, dtype=np.int32), groups=groups, f32_rows=used,
+        in_f32=f32_at(INPUT), out_f32=f32_at(layers[-1].name), buf_bytes=bufs,
+    )
 
 
 def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float32") -> PackedStack:
@@ -349,6 +586,7 @@ def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float3
         dtype=np.int32,
     )
     device = first[1].device
+    wg = pack_wgmma(layers, plain, first[0].out_ch) if dtype == "bfloat16" else None
     return PackedStack(
         first=first,
         last=last,
@@ -361,6 +599,7 @@ def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float3
         out_row=placed[-1].out_row,
         smem_rows=used,
         dtype=dtype,
+        wg=wg,
     )
 
 
@@ -416,11 +655,7 @@ def padded_product_ratio(packed: PackedStack) -> float:
     k8 or k16 chunks, cout to n8 tiles) over the products the layers need (tap j meets
     F_DIM - |j - lo| bins; the rest fall on the zero halo)."""
     done = sum(M_PAD * lay.chunks * lay.k_chunk * lay.n_tiles * N_TILE for lay in packed.layers)
-    need = 0
-    for lay in packed.layers:
-        lo = (lay.kw - 1) // 2
-        need += lay.cin * lay.cout * sum(F_DIM - abs(j - lo) for j in range(lay.kw))
-    return done / need
+    return done / frame_macs(packed)
 
 
 def model_blocks_per_sm(smem_bytes: int) -> int:
@@ -438,6 +673,62 @@ def launch_plan(packed: PackedStack, blocks_per_sm: Optional[int] = None) -> Lau
     return LaunchPlan(THREADS, smem, per_sm, 1, padded_product_ratio(packed))
 
 
+class WgLaunchPlan(NamedTuple):
+    """How `stack_forward` launches the wgmma kernel on `frames` frames:
+    `grid` persistent blocks (`blocks_per_sm` on each of the card's SMs,
+    at most one a frame), each `frames_per_block` frames one after another,
+    of `warpgroups` warpgroups (one m64 tile of bins each) and an edge warp
+    (bin 128), and `smem_bytes` of shared memory; each layer's weights
+    staged by one bulk copy a layer ahead into one of two buffers; its
+    tiles compute `padded_product_ratio` times the products the layers
+    need."""
+
+    threads: int
+    warpgroups: int
+    smem_bytes: int
+    blocks_per_sm: int
+    grid: int
+    frames_per_block: int
+    weight_buffers_bytes: Tuple[int, int]
+    weight_staging: str
+    padded_product_ratio: float
+
+
+def wgmma_padded_product_ratio(packed: PackedStack):
+    """Products the wgmma kernel computes (two m64 tiles of bins by wgmma
+    and the edge warp's m16 tile by mma.sync, k16 instructions of two k8
+    blocks, cout padded to 8) over the products the layers need (as
+    `padded_product_ratio` counts them); -> (all, wgmma's, mma.sync's)."""
+    k16n = sum(int(r[WgField.INSTR]) * 16 * int(r[WgField.N]) for r in packed.wg.plan)
+    need = frame_macs(packed)
+    return (WG_TILES * WG_M + WG_EDGE_M) * k16n / need, WG_TILES * WG_M * k16n / need, WG_EDGE_M * k16n / need
+
+
+def frame_macs(packed: PackedStack) -> int:
+    """Multiply-adds a frame of the stack needs: tap j of a layer meets
+    F_DIM - |j - lo| bins; the rest fall on the zero halo."""
+    need = 0
+    for lay in packed.layers:
+        lo = (lay.kw - 1) // 2
+        need += lay.cin * lay.cout * sum(F_DIM - abs(j - lo) for j in range(lay.kw))
+    return need
+
+
+def wgmma_launch_plan(packed: PackedStack, frames: int, blocks_per_sm: Optional[int] = None,
+                      sm_count: int = SM_COUNT) -> WgLaunchPlan:
+    """The wgmma kernel's launch on `frames` frames of a pack that
+    `takes_wgmma`, at `blocks_per_sm` (from `card_wgmma_blocks_per_sm`) or,
+    when not given, as shared memory and the SM's 2048 threads allow
+    (registers not modelled), on `sm_count` SMs."""
+    smem = packed.wg.smem_bytes
+    if blocks_per_sm is None:
+        blocks_per_sm = min(SM_SMEM_BYTES // (smem + 1024), 2048 // WG_THREADS)
+    grid = max(1, min(frames, blocks_per_sm * sm_count))
+    return WgLaunchPlan(WG_THREADS, WG_TILES, smem, blocks_per_sm, grid, -(-frames // grid), packed.wg.buf_bytes,
+                        "one bulk copy (TMA) per layer from L2 by the edge warp, a layer ahead, on an mbarrier",
+                        wgmma_padded_product_ratio(packed)[0])
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and load `csrc/rced_stack.cu`."""
     global _lib
@@ -453,6 +744,14 @@ def load_library() -> ctypes.CDLL:
         lib.rced_stack_blocks_per_sm.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ]
+        lib.rced_stack_forward_wgmma.restype = ctypes.c_int
+        lib.rced_stack_forward_wgmma.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.rced_stack_wgmma_blocks_per_sm.restype = ctypes.c_int
+        lib.rced_stack_wgmma_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.rced_stack_error_string.restype = ctypes.c_char_p
         lib.rced_stack_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -476,15 +775,28 @@ def card_blocks_per_sm(smem_bytes: int, device: torch.device, dtype: str = "floa
     return n.value
 
 
-def stack_forward(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
-    """The inner stack: [B, c_in, T, 129] float32 -> [B, c_out, T, 129],
-    in the operand mode `packed` was packed for.
+@functools.lru_cache(maxsize=None)
+def card_wgmma_blocks_per_sm(smem_bytes: int, device: torch.device) -> int:
+    """Blocks of the wgmma kernel one SM of `device` holds at `smem_bytes`
+    each, from the CUDA occupancy calculator (asked once per device and
+    size)."""
+    lib = load_library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.rced_stack_wgmma_blocks_per_sm(smem_bytes, ctypes.byref(n))
+    _check(lib, rc, "wgmma occupancy query")
+    return n.value
 
-    A CPU tensor runs `stack_forward_plain`.  A CUDA tensor launches the
-    CUDA kernel of that mode or raises; it never falls back to the plain
-    version."""
-    if x.device.type == "cpu":
-        return stack_forward_plain(packed, x)
+
+def takes_wgmma(packed: PackedStack) -> bool:
+    """Whether `stack_forward` launches the bf16 wgmma kernel on `packed`:
+    a bf16 pack whose shapes `wgmma_layout` takes (every V1/V2/V3 pack);
+    other bf16 packs take conv_layer_bf16."""
+    return packed.dtype == "bfloat16" and packed.wg is not None
+
+
+def _checked(packed: PackedStack, x: torch.Tensor):
+    """-> (B, T) of a CUDA input the kernels take; raises on anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"rced_stack runs on cpu or cuda tensors, not {x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous():
@@ -494,16 +806,23 @@ def stack_forward(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"rced_stack wants [B, {packed.c_in}, T, {F_DIM}], got {tuple(x.shape)}"
         )
-    if packed.weights.device != x.device or packed.koffs.device != x.device:
+    if packed.weights.device != x.device or packed.koffs.device != x.device or (
+            packed.wg is not None and packed.wg.weights.device != x.device):
         raise ValueError(f"packed weights on {packed.weights.device}, input on {x.device}")
+    return B, T
+
+
+def _launch_mma_sync(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
+    """The mma.sync kernel (3xTF32, or conv_layer_bf16 on a bf16 pack)."""
     global launches, launches_bf16
+    B, T = _checked(packed, x)
     bf16 = packed.dtype == "bfloat16"
     lib = load_library()
     out = torch.empty(B, packed.c_out, T, F_DIM, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.rced_stack_forward(
             x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(), packed.koffs.data_ptr(),
-            packed.plan.ctypes.data, len(packed.layers), B, T, C, packed.c_out,
+            packed.plan.ctypes.data, len(packed.layers), B, T, packed.c_in, packed.c_out,
             packed.in_row * ROW, packed.out_row * ROW, packed.smem_floats, int(bf16),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -513,6 +832,53 @@ def stack_forward(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
     else:
         launches += 1
     return out
+
+
+def _launch_wgmma(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 wgmma kernel on a pack that `takes_wgmma`."""
+    global launches_bf16_wgmma
+    B, T = _checked(packed, x)
+    wg = packed.wg
+    lib = load_library()
+    out = torch.empty(B, packed.c_out, T, F_DIM, dtype=x.dtype, device=x.device)
+    plan = np.ascontiguousarray(wg.plan)
+    layout = wg.layout()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = wgmma_launch_plan(packed, B * T, card_wgmma_blocks_per_sm(wg.smem_bytes, x.device), sms).grid
+    with torch.cuda.device(x.device):
+        rc = lib.rced_stack_forward_wgmma(
+            x.data_ptr(), out.data_ptr(), wg.weights.data_ptr(), plan.ctypes.data, layout.ctypes.data,
+            len(packed.layers), B, T, packed.c_in, packed.c_out, grid,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _check(lib, rc, "wgmma launch")
+    launches_bf16_wgmma += 1
+    return out
+
+
+def stack_forward(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
+    """The inner stack: [B, c_in, T, 129] float32 -> [B, c_out, T, 129],
+    in the operand mode `packed` was packed for.
+
+    A CPU tensor runs `stack_forward_plain`.  A CUDA tensor launches the
+    CUDA kernel of that mode (in bf16 the wgmma kernel where `takes_wgmma`,
+    else conv_layer_bf16) or raises; it never falls back to the plain
+    version or to the other kernel."""
+    if x.device.type == "cpu":
+        return stack_forward_plain(packed, x)
+    if takes_wgmma(packed):
+        return _launch_wgmma(packed, x)
+    return _launch_mma_sync(packed, x)
+
+
+def stack_forward_mma_sync(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
+    """`stack_forward` through the mma.sync kernel whatever the shapes: a
+    bf16 pack runs conv_layer_bf16 (counted in `launches_bf16`).  No path
+    of the package calls it; chip_smoke.py times and checks that design
+    beside the wgmma kernel."""
+    if x.device.type == "cpu":
+        return stack_forward_plain(packed, x)
+    return _launch_mma_sync(packed, x)
 
 
 def fused_inference_forward(

@@ -579,6 +579,11 @@ ONE_LAYER_CASES = [(1, 8, 8, None), (5, 10, 12, None), (13, 19, 32, None), (7, 2
                    (9, 20, 20, "skip"), (9, 18, 18, "add"), (11, 12, 3, None)]
 
 
+def _stack_counts():
+    """rced_stack's launch counts: 3xTF32, conv_layer_bf16, bf16 wgmma."""
+    return rced_stack.launches, rced_stack.launches_bf16, rced_stack.launches_bf16_wgmma
+
+
 def _bf16_packed(model, params, bn, device):
     p, s = params_from_numpy(params, bn, device=device)
     return rced_stack.pack_inference_stack(model, p, s, "bfloat16")
@@ -587,18 +592,36 @@ def _bf16_packed(model, params, bn, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ONE_LAYER_CASES, ids=lambda c: "_".join(map(str, c)))
 def test_kernel_bf16_one_layer_matches_plain_on_cuda(cuda_device, case):
-    """One layer: the kernel and the plain bf16 mode round the same input
-    and weights, products are exact, sums float32 in another order:
-    rtol 1e-4, atol 1e-5 * max|plain|."""
+    """One layer: the kernel (the wgmma one, which every case takes) and
+    the plain bf16 mode round the same input and weights, products are
+    exact, sums float32 in another order: rtol 1e-4, atol 1e-5 *
+    max|plain|."""
+    model = one_layer_model(*case)
+    packed = _bf16_packed(model, *numpy_params(model, 3, centred_bn=True), cuda_device)
+    assert rced_stack.takes_wgmma(packed)
+    x = torch.rand(2, packed.c_in, 45, 129, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    before = _stack_counts()
+    got = rced_stack.stack_forward(packed, x)
+    torch.cuda.synchronize()
+    assert _stack_counts() == (before[0], before[1], before[2] + 1)
+    ref = rced_stack.stack_forward_plain(packed, x)
+    assert_live(ref)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ONE_LAYER_CASES, ids=lambda c: "_".join(map(str, c)))
+def test_kernel_bf16_mma_sync_one_layer_matches_plain_on_cuda(cuda_device, case):
+    """The same through conv_layer_bf16 (`stack_forward_mma_sync`), which
+    shapes the wgmma kernel does not take still reach."""
     model = one_layer_model(*case)
     packed = _bf16_packed(model, *numpy_params(model, 3, centred_bn=True), cuda_device)
     x = torch.rand(2, packed.c_in, 45, 129, generator=torch.Generator().manual_seed(4)).to(cuda_device)
-    before = (rced_stack.launches, rced_stack.launches_bf16)
-    got = rced_stack.stack_forward(packed, x)
+    before = _stack_counts()
+    got = rced_stack.stack_forward_mma_sync(packed, x)
     torch.cuda.synchronize()
-    assert (rced_stack.launches, rced_stack.launches_bf16) == (before[0], before[1] + 1)
+    assert _stack_counts() == (before[0], before[1] + 1, before[2])
     ref = rced_stack.stack_forward_plain(packed, x)
-    assert_live(ref)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * ref.abs().max().item())
 
 
@@ -613,10 +636,10 @@ def test_kernel_bf16_matches_plain_on_cuda(cuda_device, name, B, T):
     params, bn = params_from_numpy(*numpy_params(name, 1, centred_bn=True), device=cuda_device)
     packed = rced_stack.pack_inference_stack(get_model(name), params, bn, "bfloat16")
     x = torch.rand(B, packed.c_in, T, 129, generator=torch.Generator().manual_seed(T)).to(cuda_device)
-    before = rced_stack.launches_bf16
+    before = rced_stack.launches_bf16_wgmma
     got = rced_stack.stack_forward(packed, x)
     torch.cuda.synchronize()
-    assert rced_stack.launches_bf16 == before + 1
+    assert rced_stack.launches_bf16_wgmma == before + 1
     ref = rced_stack.stack_forward_plain(packed, x)
     assert_live(ref)
     assert_bf16_stack_close(got, ref)
@@ -625,22 +648,67 @@ def test_kernel_bf16_matches_plain_on_cuda(cuda_device, name, B, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,B,T", [(n, 2, 45) for n in NAMES] + [("FullyCNNV2", 1, 1999)])
+def test_kernel_bf16_wgmma_matches_mma_sync_on_cuda(cuda_device, name, B, T):
+    """The wgmma kernel against conv_layer_bf16 on the same pack: both
+    within a bf16 stack's tolerance of the plain bf16 mode and of each
+    other, one launch of each."""
+    params, bn = params_from_numpy(*numpy_params(name, 4, centred_bn=True), device=cuda_device)
+    packed = rced_stack.pack_inference_stack(get_model(name), params, bn, "bfloat16")
+    x = torch.rand(B, packed.c_in, T, 129, generator=torch.Generator().manual_seed(B + T)).to(cuda_device)
+    before = _stack_counts()
+    got = rced_stack.stack_forward(packed, x)
+    old = rced_stack.stack_forward_mma_sync(packed, x)
+    torch.cuda.synchronize()
+    assert _stack_counts() == (before[0], before[1] + 1, before[2] + 1)
+    ref = rced_stack.stack_forward_plain(packed, x)
+    assert_live(ref)
+    assert_bf16_stack_close(got, ref)
+    assert_bf16_stack_close(old, ref)
+    assert_bf16_stack_close(got, old)
+
+
+@pytest.mark.cuda
+def test_kernel_bf16_over_budget_takes_mma_sync_on_cuda(cuda_device):
+    """A model whose float32 rows do not fit two blocks an SM: stack_forward
+    launches conv_layer_bf16, within a bf16 stack's tolerance of plain."""
+    from fullycnnspeechenhancement_torch.models.rced import ConvSpec, ModelDef
+
+    enc = [ConvSpec("e0", 32, (8, 5))] + [ConvSpec(f"e{i}", 32, (1, 5)) for i in range(1, 8)]
+    dec = [ConvSpec(f"d{i}", 32, (1, 5), skip_from=f"e{7 - i}") for i in range(7)]
+    model = ModelDef("over_budget", tuple(enc + dec + [ConvSpec("last", 1, (1, 129), use_norm=False,
+                                                                    use_act=False)]))
+    packed = _bf16_packed(model, *numpy_params(model, 5, centred_bn=True), cuda_device)
+    assert not rced_stack.takes_wgmma(packed)
+    x = torch.rand(2, packed.c_in, 31, 129, generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    before = _stack_counts()
+    got = rced_stack.stack_forward(packed, x)
+    torch.cuda.synchronize()
+    assert _stack_counts() == (before[0], before[1] + 1, before[2])
+    assert_bf16_stack_close(got, rced_stack.stack_forward_plain(packed, x))
+
+
+@pytest.mark.cuda
 def test_kernel_bf16_repeats_and_raises_instead_of_falling_back(cuda_device):
-    """Two launches agree bit for bit; a bf16 input, or a float32 pack
-    called in the bf16 mode, raises and launches nothing."""
+    """Two launches agree bit for bit, in each bf16 kernel; a bf16 input,
+    or a float32 pack called in the bf16 mode, raises and launches
+    nothing."""
     params, bn = params_from_numpy(*numpy_params("FullyCNNV2", 2, centred_bn=True), device=cuda_device)
     model = get_model("FullyCNNV2")
     packed = rced_stack.pack_inference_stack(model, params, bn, "bfloat16")
     x = torch.rand(3, packed.c_in, 97, 129, generator=torch.Generator().manual_seed(9)).to(cuda_device)
     assert torch.equal(rced_stack.stack_forward(packed, x), rced_stack.stack_forward(packed, x))
-    before = (rced_stack.launches, rced_stack.launches_bf16)
+    assert torch.equal(rced_stack.stack_forward_mma_sync(packed, x), rced_stack.stack_forward_mma_sync(packed, x))
+    before = _stack_counts()
     with pytest.raises(ValueError, match="contiguous float32"):
         rced_stack.stack_forward(packed, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous float32"):
+        rced_stack.stack_forward_mma_sync(packed, x.to(torch.bfloat16))
     mag = torch.rand(1, 20, 129, device=cuda_device)
     with pytest.raises(ValueError, match="packed for float32"):
         rced_stack.fused_inference_forward(model, params, bn, mag, packed=_packed("FullyCNNV2", 2, cuda_device),
                                            dtype="bfloat16")
-    assert (rced_stack.launches, rced_stack.launches_bf16) == before
+    assert _stack_counts() == before
 
 
 def _dw_inputs_bf16(B, T, ci, co, device, seed=0, offset=0):
