@@ -92,7 +92,8 @@ for an H100) and `nvcc`.  It imports only the port
      steps_per_call=8 dispatch, and which ops launch cuDNN's layout
      conversions in one train step;
  11a. a second `cli.train` with the TPU training profile's own dtype,
-     `compute_dtype=bfloat16` (still without its device cache), one epoch
+     `compute_dtype=bfloat16` (with the host loader; phase 17 runs the
+     profile's device cache), one epoch
      on phase 8's corpus with validation after it, the bf16 dW kernels'
      launch counts set to 0 just before and read just after: 14 per step
      (8 steps) through the wgmma kernel, none through the bf16 mma.sync
@@ -160,14 +161,57 @@ for an H100) and `nvcc`.  It imports only the port
      two runs' printed averages within STOI 1e-4, SDR 1e-2 dB and PESQ
      1e-2 (the differences are logged), PESQ `p862-native`, 256 `_de.wav`
      files each;
- 16. prints a `kernels` JSON line (six entries: `rced_stack` and
+  The streaming path (`streaming.py`, `cli/stream`; plain torch, as the
+  JAX streamer calls `model.apply`):
+ 16. builds a `StreamingDenoiser` on the card with phase 3's V2 weights,
+     pushes a 30 s speech-like recording at 8 frames (1,024 samples) a
+     push and holds the stream against the whole-utterance overlap-add
+     path on the card (analysis, the model in eval mode,
+     `WaveformRebuilder(mode="overlap_add")`; rtol 1e-3, atol 2e-3, the
+     tolerances of tests/test_streaming.py), against the same streamer on
+     the CPU and against 4 frames a push (atol 1e-5 * max|reference|);
+     logs the push times; then runs `cli.stream.main` on a 6 s wav and
+     logs its report (rtf, push p50 and p95, budget, latency);
+
+  The device-cache training path (`data/device_cache.py`,
+  `train/cached_step.py`; the bf16 dW kernel on `wgmma` again):
+ 17. on phase 8's corpus, `cli.train` with the TPU training profile as
+     written (`use_device_cache=True`, bf16, blocked, batch 64,
+     steps_per_call 8) plus dw_pallas, the bf16 dW kernels' launch counts
+     set to 0 just before and read just after each run: (a) the resident
+     cache, two epochs with validation after the second: 14 launches a
+     step through the wgmma kernel, none through the bf16 mma.sync one,
+     none float32; two 8-step dispatches; every loss finite, the
+     checkpoints written, the validation scores finite; one cached
+     steps_per_call=8 dispatch's idle share under the profiler; (b) the
+     rotating cache over the corpus listed three times, its budget set for
+     3 shards of at least 8 batches of one bucket each, spilled under the
+     temp dir, two epochs: the same launch counts, floor(batches / 8)
+     8-step dispatches a shard, every manifest item trained once an
+     epoch, `generation` once per commit, every loss finite,
+     `torch.cuda.max_memory_allocated` logged; (c) parity in float32 from
+     phase 9's initial state: every batch the cache rebuilds on the card
+     against the host loader's (clean bit for bit, the mix within 2
+     float32 spacings of its largest term), then an epoch each: losses
+     within rtol 1e-3, params within rtol 1e-3, atol 1e-4; logs each
+     cached epoch's audio-s/s with its cache build and commit seconds,
+     beside phase 11a's host-loader epoch and the ceiling phase 11c's bf16
+     step sets, not gated;
+
+  The export path (`export.py`, `cli/export`):
+ 18. `cli.export.main` from phase 8's last checkpoint writes the npz and
+     the `torch.export` artefact; each, reloaded on the card, gives the
+     engine's plain forward on a 6 s request within 1e-5 of max|ref|;
+ 19. prints a `kernels` JSON line (six entries: `rced_stack` and
      `blocked_dw` in float32 and in bf16, each with its "dtype", the bf16
      `rced_stack` the wgmma kernel with conv_layer_bf16's time as
      `mma_sync_ms`, then
      `freq_conv` and `freq_conv_stack`; the float32 `rced_stack`'s
      launches are the serving path's and the evaluation path's, each also
-     by path, and its max_abs_err covers phases 6, 7 and 15), the card
-     line again, and last the line {"ok": true, "device": {...}}.
+     by path, and its max_abs_err covers phases 6, 7 and 15; the bf16
+     `blocked_dw`'s launches are the host loader's (11a) and both device
+     caches' (17a, 17b), each also by path), the card line again, and
+     last the line {"ok": true, "device": {...}}.
 
 Each phase prints its wall time.  Any failed phase raises, so the script
 exits non-zero and prints no last line.  Without CUDA it exits 1 at once.
@@ -853,12 +897,14 @@ def write_corpus(root: str, rng) -> dict:
 
 def write_train_ini(path: str, root: str, corpus: dict, dw_pallas: bool = True,
                     base_checkpoint: str = "", compute_dtype: str = "float32",
-                    epochs: int = EPOCHS, valid_every: int = VALID_EVERY) -> str:
+                    epochs: int = EPOCHS, valid_every: int = VALID_EVERY,
+                    use_device_cache: bool = False, extra_data: str = "") -> str:
     """The TPU training profile (work/aishell_1/cfg/fully_cnn_train_tpu.cfg)
-    without its device cache, in `compute_dtype` (the profile's is
-    bfloat16), with dw_pallas, the host loader, `epochs` epochs, validation
-    every `valid_every` epochs on the premixed validation manifest, and
-    paths under `root`."""
+    in `compute_dtype` (the profile's is bfloat16), with dw_pallas, the
+    host loader unless `use_device_cache` (the profile's setting), `epochs`
+    epochs, validation every `valid_every` epochs on the premixed
+    validation manifest, paths under `root`, and `extra_data` lines in
+    [data]."""
     with open(path, "w") as f:
         f.write(
             "[training]\n"
@@ -872,7 +918,8 @@ def write_train_ini(path: str, root: str, corpus: dict, dw_pallas: bool = True,
             f"[data]\ntrain_manifest_path={corpus['clean']}\n"
             f"train_noise_manifest={corpus['noise']}\n"
             f"val_manifest_path={corpus['val']}\naudio_save_path={root}/denoise\n"
-            "snr=0\nsample_rate=8000\nwindow_ms=32\nstride_ms=16\nuse_device_cache=False\n"
+            "snr=0\nsample_rate=8000\nwindow_ms=32\nstride_ms=16\n"
+            f"use_device_cache={use_device_cache}\n{extra_data}"
         )
     return path
 
@@ -1371,6 +1418,9 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
         raise AssertionError("bf16: validation left the fork pool or the native PESQ")
     log(f"bf16 validation pass: {N_VAL} utterances ({corpus['val_seconds']:.1f} audio-s) in "
         f"{validations[0][1]:.2f} s, {corpus['val_seconds'] / validations[0][1]:.1f} audio-s/s")
+    # the host loader's bf16 epoch, beside the device cache's (phase 17)
+    ctx["epoch_rate_bf16"] = epoch_rates(root)[0][2]
+    log(f"bf16 epoch with the host loader: {epoch_rates(root)}")
     phase("bf16 training main path", t0)
 
     # -- 11b. parity: dw_pallas on and off under bf16, and float32 -------------
@@ -1443,6 +1493,7 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
         ms = float(np.mean(step_ms[dw]))
         log(f"train step bf16 {B_TRAIN} x 8 s, dw_pallas={dw}: {step_ms[dw][0]:.2f} / {step_ms[dw][1]:.2f} ms "
             f"(mean {ms:.2f} ms, {audio_s / ms * 1e3:.1f} audio-s/s; float32 {ctx['step_ms32'][dw]:.2f} ms)")
+    ctx["step_ms_bf16"] = float(np.mean(step_ms[True]))  # the device cache's ceiling (phase 17)
     tr = trainers[True]
     stacked = tr._prep_multi(ctx["batches"] * 2)
 
@@ -2024,6 +2075,412 @@ def run_evaluation(dev, tmp: str, checkpoint: str) -> dict:
     return {"launches": runs[True][1], "max_abs_err": max_err}
 
 
+# -- the streaming path ------------------------------------------------------
+
+# The streamed output against the whole-utterance overlap-add path
+# (tests/test_streaming.py's tolerances), and against the CPU streamer and
+# another chunk size (atol = STREAM_TOL * max|reference|).
+STREAM_TOL = 1e-5
+
+
+def stream_through(den, sig, push: int):
+    """(output, per-push seconds) of `sig` pushed through `den` in pieces
+    of `push` samples, then flushed."""
+    out, times = [], []
+    for i in range(0, len(sig), push):
+        t0 = time.perf_counter()
+        out.append(den.push(sig[i : i + push]))
+        times.append(time.perf_counter() - t0)
+    out.append(den.flush())
+    return np.concatenate(out), times
+
+
+def run_streaming(dev, tmp: str) -> None:
+    """Phase 16: `StreamingDenoiser` on the card with phase 3's V2 weights:
+    a 30 s recording at 8 frames (1,024 samples) a push against the
+    whole-utterance overlap-add path on the card, against the same
+    streamer on the CPU, and against 4 frames a push; then `cli.stream`
+    on a 6 s wav."""
+    from fullycnnspeechenhancement_torch import Config, ModelConfig
+    from fullycnnspeechenhancement_torch.cli import stream as stream_cli
+    from fullycnnspeechenhancement_torch.data.audio_io import write_wav
+    from fullycnnspeechenhancement_torch.dsp.rebuild import WaveformRebuilder
+    from fullycnnspeechenhancement_torch.infer import InferenceEngine
+    from fullycnnspeechenhancement_torch.streaming import StreamingDenoiser
+
+    npz = os.path.join(tmp, "v2.npz")  # phase 3's weights
+    config = Config(model=ModelConfig(net_work="FullyCNNV2"))
+    engine = InferenceEngine(config, checkpoint=npz, device=dev)
+    rng = np.random.default_rng(16)
+    sig = speech_like(rng, 30.0)
+    push = 8 * config.dsp.frame_step
+
+    reb = WaveformRebuilder(config.dsp, mode="overlap_add")
+    with torch.inference_mode():
+        wav = torch.as_tensor(sig[None], device=dev)
+        lengths = torch.tensor([len(sig)], dtype=torch.int32, device=dev)
+        mag, pre, pim = engine.ext.magnitude_and_phase(wav, lengths)
+        pred, _ = engine.model.apply(engine.params, engine.bn_state, mag[..., None])
+        whole = reb(pred[..., 0], pre, pim)[0].cpu().numpy()
+
+    def streamer(device, chunk):
+        return StreamingDenoiser(config, engine.params, engine.bn_state, chunk_frames=chunk, device=device)
+
+    out8, times = stream_through(streamer(dev, 8), sig, push)
+    n = min(len(out8), len(whole))
+    if n < len(sig) - config.dsp.frame_length or np.abs(whole).max() < 1e-3:
+        raise AssertionError(f"stream of {len(out8)} samples, whole path {len(whole)}, max|whole| "
+                             f"{np.abs(whole).max():.3e}, for {len(sig)} in")
+    err = check_close("stream vs whole utterance", torch.as_tensor(out8[:n]), torch.as_tensor(whole[:n]),
+                      1e-3, 2e-3)
+    out_cpu, times_cpu = stream_through(streamer("cpu", 8), sig, push)
+    err_cpu = check_close("stream card vs CPU", torch.as_tensor(out8), torch.as_tensor(out_cpu), 0.0,
+                          STREAM_TOL * np.abs(out_cpu).max())
+    out4, _ = stream_through(streamer(dev, 4), sig, push)
+    err4 = check_close("stream 4 vs 8 frames a push", torch.as_tensor(out4), torch.as_tensor(out8), 0.0,
+                       STREAM_TOL * np.abs(out8).max())
+    ms = np.asarray(times) * 1e3
+    log(f"streaming 30 s at 8 frames a push ({len(times)} pushes): vs whole utterance max abs err {err:.3e} "
+        f"(rtol 1e-3, atol 2e-3), vs the CPU streamer {err_cpu:.3e}, 4 vs 8 frames {err4:.3e} (max|out| "
+        f"{np.abs(out8).max():.3e}); push p50 {np.percentile(ms, 50):.3f} ms, p95 "
+        f"{np.percentile(ms, 95):.3f} ms, sum {ms.sum():.1f} ms (CPU streamer: p50 "
+        f"{np.percentile(np.asarray(times_cpu) * 1e3, 50):.3f} ms)")
+
+    ini = os.path.join(tmp, "stream.cfg")
+    with open(ini, "w") as f:
+        f.write("[model]\nnet_work=FullyCNNV2\n")
+    wav_in = os.path.join(tmp, "stream_in.wav")
+    write_wav(wav_in, speech_like(rng, 6.0), SR)
+    report = stream_cli.main(["--cfg", ini, "--audio-file", wav_in, "--checkpoint", npz, "--device", str(dev)])
+    if sorted(report) != ["budget_ms", "latency_ms", "out", "push_p50_ms", "push_p95_ms", "rtf"] \
+            or not os.path.exists(report["out"]):
+        raise AssertionError(f"cli.stream reported {report}")
+    log(f"cli.stream on 6 s at 8 frames a push: rtf {report['rtf']}, push p50 {report['push_p50_ms']} ms, "
+        f"p95 {report['push_p95_ms']} ms, budget {report['budget_ms']} ms, latency {report['latency_ms']} ms; "
+        "each push that emits output waits for one device-to-host copy of its prediction")
+
+
+# -- the device-cache training path -------------------------------------------
+
+
+def epoch_rates(root: str) -> list:
+    """(audio-s, seconds, audio-s/s) of each epoch `cli.train` logged under
+    `root`/log."""
+    import glob
+    import re
+
+    pat = re.compile(r"epoch \d+ done: ([\d.]+) audio-s in ([\d.]+) s \(([\d.]+) audio-s/s\)")
+    out = []
+    for path in sorted(glob.glob(os.path.join(root, "log", "*_log.txt"))):
+        out += [tuple(float(g) for g in m.groups()) for m in pat.finditer(open(path).read())]
+    return out
+
+
+def logged_losses(root: str) -> list:
+    with open(os.path.join(root, "log", "scalars_RCED_FullyCNNV2.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if "loss" in r], [r for r in rows if any(k.startswith("valid_") for k in r)]
+
+
+def mix_close(name, got, ref, clean, ulps: int) -> float:
+    """Raise unless |got - ref| is within `ulps` float32 spacings of the
+    mix's largest term (clean, the scaled noise or the sum) everywhere;
+    returns the largest difference in such spacings."""
+    big = np.maximum(np.maximum(np.abs(clean), np.abs(got - clean)), np.abs(got)).astype(np.float32)
+    ratio = np.abs(got - ref) / np.maximum(np.spacing(big), np.finfo(np.float32).tiny)
+    if ratio.max() > ulps:
+        raise AssertionError(f"{name}: mix off by {ratio.max():.3f} float32 spacings of its largest term")
+    return float(ratio.max())
+
+
+def run_device_cache(dev, tmp: str, ctx: dict) -> dict:
+    """Phase 17: the `_tpu` training profile as written (the device cache,
+    bf16, blocked, batch 64, steps_per_call 8) with dw_pallas, on phase
+    8's corpus through `cli.train`: a resident run (two epochs, validation
+    after the second) and a rotating run (two epochs over the corpus
+    listed three times, the budget set for 3 shards of at least 8 batches
+    each, so every shard runs 8-step dispatches; spilled under the temp
+    dir), each with the bf16 dW kernels' launch counts set to 0 just
+    before and read just after, and its cache build (decode) and commit
+    seconds and its dispatches' step counts recorded; then parity of the
+    cache against the host loader in float32 from phase 9's initial
+    state; and one cached dispatch's idle share.  Returns each run's
+    bf16 dW launches."""
+    from fullycnnspeechenhancement_torch import load_ini_config
+    from fullycnnspeechenhancement_torch.cli import train as train_cli
+    from fullycnnspeechenhancement_torch.data import device_cache
+    from fullycnnspeechenhancement_torch.data.manifest import read_manifest
+    from fullycnnspeechenhancement_torch.models import get_model
+    from fullycnnspeechenhancement_torch.ops import blocked_dw
+    from fullycnnspeechenhancement_torch.train.cached_step import Meta
+    from fullycnnspeechenhancement_torch.train.trainer import Trainer
+
+    model = get_model("FullyCNNV2")
+    n_dw = sum(1 for spec in model.layers if spec.kernel[0] == 1 and spec.kernel[1] < 129)
+    corpus = ctx["corpus"]
+    manifest = [e.audio_filepath for e in read_manifest(corpus["clean"])]
+    launches = {}
+
+    def cached_run(tag, run_corpus, extra_data, valid_every, epochs=2):
+        """`cli.train` over the cache; also returns the step counts of its
+        dispatches and its cache build (decode, spill) and commit seconds,
+        the build before the first epoch's clock starts, the resident
+        commit too, the rotating commits inside each epoch's clock."""
+        root = os.path.join(tmp, f"cache_{tag}")
+        ini = write_train_ini(os.path.join(tmp, f"cache_{tag}.cfg"), root, run_corpus, compute_dtype="bfloat16",
+                              epochs=epochs, valid_every=valid_every, use_device_cache=True, extra_data=extra_data)
+        validations, ks, setup = [], [], {"build_s": 0.0, "commit_s": 0.0, "commits": 0}
+        real_build, real_commit, real_dispatch = (train_cli.build_loaders, device_cache.commit_flats,
+                                                  Trainer._dispatch_cached)
+
+        def timed_build(*a, **kw):
+            t = time.perf_counter()
+            out = real_build(*a, **kw)
+            setup["build_s"] += time.perf_counter() - t
+            return out
+
+        def timed_commit(*a, **kw):
+            t = time.perf_counter()
+            out = real_commit(*a, **kw)
+            setup["commit_s"] += time.perf_counter() - t
+            setup["commits"] += 1
+            return out
+
+        def counted_dispatch(self, payload, k, epoch):
+            ks.append(k)
+            return real_dispatch(self, payload, k, epoch)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+        t0 = time.perf_counter()
+        train_cli.build_loaders, device_cache.commit_flats = timed_build, timed_commit
+        Trainer._dispatch_cached = counted_dispatch
+        try:
+            with timed_validation(validations):
+                trainer = train_cli.main(["--cfg", ini])
+        finally:
+            train_cli.build_loaders, device_cache.commit_flats = real_build, real_commit
+            Trainer._dispatch_cached = real_dispatch
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, n32, n_old = blocked_dw.launches_bf16, blocked_dw.launches, blocked_dw.launches_bf16_mma_sync
+        rows, valid = logged_losses(root)
+        steps = len(rows)
+        rates = epoch_rates(root)
+        log(f"device cache {tag}: {steps} steps in {wall:.1f} s, blocked_dw bf16 launches {n} through the wgmma "
+            f"kernel ({n_old} through the mma.sync one, float32 {n32}), dispatches of {ks} steps, losses "
+            f"{[round(r['loss'], 3) for r in rows]}; epochs {rates}; cache build {setup['build_s']:.3f} s, "
+            f"{setup['commits']} commits in {setup['commit_s']:.3f} s; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        if n != n_dw * steps or n32 != 0 or n_old != 0 or steps == 0:
+            raise AssertionError(f"device cache {tag}: blocked_dw launched {n} wgmma, {n_old} bf16 mma.sync and "
+                                 f"{n32} float32 times in {steps} steps, expected {n_dw * steps}, 0 and 0")
+        if sum(ks) != steps:
+            raise AssertionError(f"device cache {tag}: dispatches of {ks} steps, {steps} steps logged")
+        if not all(np.isfinite(r["loss"]) for r in rows):
+            raise AssertionError(f"device cache {tag}: a logged loss is not finite")
+        if sorted(os.listdir(trainer.ckpt.dir)) != [f"epoch_{e}.pt" for e in range(epochs)]:
+            raise AssertionError(f"device cache {tag}: checkpoints {os.listdir(trainer.ckpt.dir)}")
+        launches[tag] = n
+        return trainer, steps, valid, validations, rates, ks, setup
+
+    # -- 17a. the resident cache -------------------------------------------
+    t0 = time.perf_counter()
+    trainer, steps, valid, validations, rates, ks, setup_res = cached_run("resident", corpus, "", 2)
+    loader = trainer._cached_loader
+    if not isinstance(loader, device_cache.DeviceCacheLoader) or loader.corpus.clean.device.type != dev.type \
+            or loader.corpus.clean.dtype != torch.int16:
+        raise AssertionError(f"resident run: loader {type(loader).__name__} with flats not int16 on the card")
+    if steps != 2 * N_UTTS // B_TRAIN or ks != [8, 8]:
+        raise AssertionError(f"resident run: {steps} steps in dispatches of {ks}, expected two of 8")
+    keys = sorted(k for k in valid[0] if k != "epoch") if len(valid) == 1 else []
+    if [e for e, _, _ in validations] != [1] or keys != ["valid_pesq", "valid_sdr", "valid_stoi"] \
+            or not all(np.isfinite(valid[0][k]) for k in keys):
+        raise AssertionError(f"resident run: validated after {validations}, scalars {valid}")
+    log(f"resident run: flats {loader.corpus.nbytes() / 2**20:.1f} MiB on the card; validation {valid[0]}")
+    # one cached steps_per_call=8 dispatch under the profiler
+    batches = list(loader)[:8]
+    clean_flat, other_flat = loader.flats()
+    fn = trainer._cached_fn(batches[0].bucket_frames, len(batches))
+    meta = Meta.stack(batches, dev)
+    dispatch_audio = float(sum(b.lengths.sum() for b in batches)) / SR
+
+    def dispatch():
+        trainer.state, packed = fn(trainer.state, clean_flat, other_flat, meta)
+        return packed
+
+    host_ms, busy_ms, events = device_busy_ms(dispatch, reps=1, top=8)
+    log(f"one cached steps_per_call=8 bf16 dispatch: host {host_ms:.2f} ms traced, "
+        f"{dispatch_audio / host_ms * 1e3:.1f} audio-s/s, " + (
+            "device busy not measured" if busy_ms is None else
+            f"device busy {busy_ms:.2f} ms in {events:.0f} device events, idle share {1 - busy_ms / host_ms:.3f}"))
+    phase("device cache, resident", t0)
+
+    # -- 17b. the rotating cache -------------------------------------------
+    # Phase 8's corpus listed three times, so that each of 3 shards holds at
+    # least 8 batches of the one (512-frame) bucket and runs 8-step dispatches.
+    t0 = time.perf_counter()
+    with open(corpus["clean"]) as f:
+        lines = f.read().splitlines()
+    corpus3 = dict(corpus, clean=os.path.join(tmp, "train3.clean"))
+    with open(corpus3["clean"], "w") as f:
+        f.write("\n".join(lines * 3) + "\n")
+    total = 3 * sum(int(e.duration * SR) * 2 for e in read_manifest(corpus["clean"]))
+    budget_gb = total / 3 * 1.03 / 0.95 / 2**30  # the split fills 0.95 of the budget
+    seen = []
+    real_iter = device_cache.RotatingDeviceCacheLoader.__iter__
+
+    def recording_iter(self):
+        for b in real_iter(self):
+            seen.extend((self._epoch, self._resident, self.generation, int(i)) for i in b.indices)
+            yield b
+
+    device_cache.RotatingDeviceCacheLoader.__iter__ = recording_iter
+    try:
+        trainer, steps, _, _, rates_rot, ks_rot, setup_rot = cached_run(
+            "rotating", corpus3, f"device_cache_budget_gb={budget_gb!r}\n"
+            f"device_cache_spill_dir={os.path.join(tmp, 'cache_spill')}\n", 3)
+    finally:
+        device_cache.RotatingDeviceCacheLoader.__iter__ = real_iter
+    rot = trainer._cached_loader
+    if not isinstance(rot, device_cache.RotatingDeviceCacheLoader) or rot.num_shards < 3:
+        raise AssertionError(f"rotating run: loader {type(rot).__name__}, not 3 shards or more")
+    per_shard = [len(ld) for ld in rot._loaders]
+    if min(per_shard) < 8 or any(len({ld.bucket_for(f) for f in ld._frames}) != 1 for ld in rot._loaders):
+        raise AssertionError(f"rotating run: shards of {per_shard} batches, not one bucket of 8 or more each")
+    if steps != 2 * len(rot) or ks_rot.count(8) != 2 * sum(n // 8 for n in per_shard):
+        raise AssertionError(f"rotating run: {steps} steps for 2 epochs of {len(rot)} batches, dispatches "
+                             f"{ks_rot}, expected {2 * sum(n // 8 for n in per_shard)} of 8 steps")
+    # a shard run: consecutive batches of one shard (the first shard of an
+    # epoch continues the run when it is the one still resident)
+    starts = [j for j in range(len(seen)) if j == 0 or seen[j - 1][1] != seen[j][1]]
+    shard_runs = [seen[j][1] for j in starts]
+    gens = [seen[j][2] for j in starts]
+    if rot.generation != len(starts) or gens != list(range(1, len(starts) + 1)) \
+            or len({g for _, _, g, _ in seen}) != len(starts):
+        raise AssertionError(f"rotating run: generation {rot.generation}, {gens} at the shard runs {shard_runs}")
+    everything = sorted((si, i) for si, c in enumerate(rot._corpora) for i in range(len(c.entries)))
+    for epoch in range(2):
+        items = [(s, i) for e, s, _, i in seen if e == epoch]
+        if sorted(set(items)) != everything or len(everything) != 3 * N_UTTS or len(items) != len(rot) * B_TRAIN:
+            raise AssertionError(f"rotating run, epoch {epoch}: {len(set(items))} of {len(everything)} items "
+                                 f"trained, {len(items)} slots")
+    paths = [rot._corpora[s].entries[i].audio_filepath for e, s, _, i in seen if e == 0]
+    if sorted(set(paths)) != sorted(manifest):
+        raise AssertionError("rotating run: the trained items are not phase 8's corpus")
+    log(f"rotating run: {rot.num_shards} shards of {per_shard} batches (budget "
+        f"{budget_gb * 2**30 / 2**20:.2f} MiB, {rot.nbytes_resident() / 2**20:.2f} MiB a commit), generation "
+        f"{rot.generation} over the shard runs {shard_runs}, every one of {len(everything)} items trained once "
+        f"an epoch ({len(rot) * B_TRAIN - len(everything)} tail repeats), {ks_rot.count(8)} dispatches of 8 steps")
+    phase("device cache, rotating", t0)
+
+    # -- 17c. parity: the cache against the host loader, float32 -------------
+    t0 = time.perf_counter()
+    cfgs = {
+        cached: load_ini_config(write_train_ini(
+            os.path.join(tmp, f"cache_parity_{cached}.cfg"), os.path.join(tmp, f"cache_parity_{cached}"),
+            corpus, base_checkpoint=ctx["npz"], epochs=1, valid_every=2, use_device_cache=cached))
+        for cached in (True, False)
+    }
+    loaders = {cached: train_cli.build_loaders(cfgs[cached], 4)[0] for cached in (True, False)}
+    loaders[True].activate(dev)
+    for ld in loaders.values():
+        ld.set_epoch(0)
+    host_batches = list(loaders[False])
+    worst = 0.0
+    for hb, cb in zip(host_batches, loaders[True]):
+        if not np.array_equal(hb.indices, cb.indices):
+            raise AssertionError("parity: the cache's batch plan differs from the host loader's")
+        mix, clean = device_cache.materialize_batch(*loaders[True].flats(), cb,
+                                                    loaders[True].pad_len(cb.bucket_frames), False)
+        mix, clean = mix.cpu().numpy(), clean.cpu().numpy()
+        if not np.array_equal(clean, hb.clean_wav):
+            raise AssertionError("parity: a clean batch rebuilt on the card differs from the host loader's")
+        # the scale rounded to float32, the product, the sum and the host's
+        # float64-to-float32 cast: half a spacing each
+        worst = max(worst, mix_close("parity", mix, hb.mix_wav, clean, 2))
+    log(f"parity: {len(host_batches)} batches rebuilt on the card: clean bit for bit, mix within {worst:.3f} "
+        "float32 spacings of its largest term of the host loader's")
+    states, losses = {}, {}
+    for cached in (True, False):
+        tr = Trainer(cfgs[cached], device=dev)
+        tr.train(loaders[cached], epochs=1)
+        tr.ckpt.close()
+        rows, _ = logged_losses(os.path.join(tmp, f"cache_parity_{cached}"))
+        losses[cached] = np.array([r["loss"] for r in rows])
+        states[cached] = flat_leaves(tr.state.params)
+    log(f"parity losses cache {losses[True].tolist()} host {losses[False].tolist()}")
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-3)
+    for key, ref in states[False].items():
+        np.testing.assert_allclose(states[True][key], ref, rtol=1e-3, atol=1e-4, err_msg=str(key))
+    log(f"parity: {len(losses[True])} steps' losses within rtol 1e-3, params after the epoch within rtol 1e-3, "
+        f"atol 1e-4 (largest param difference "
+        f"{max(np.abs(states[True][k] - v).max() for k, v in states[False].items()):.3e})")
+    step_audio = float(sum(int(e.duration * SR) for e in read_manifest(corpus["clean"]))) / SR / N_UTTS * B_TRAIN
+    log(f"epoch audio-s/s (not gated): bf16 host loader {ctx['epoch_rate_bf16']:.1f} (phase 11a, one epoch, its "
+        f"decode and fill inside its clock); resident cache {rates[0][2]:.1f} then {rates[1][2]:.1f} (build "
+        f"{setup_res['build_s']:.3f} s and commit {setup_res['commit_s']:.3f} s before the first epoch's clock); "
+        f"rotating cache {rates_rot[0][2]:.1f} then {rates_rot[1][2]:.1f} (build {setup_rot['build_s']:.3f} s "
+        f"before the first; {setup_rot['commits']} commits, {setup_rot['commit_s']:.3f} s in all, inside the "
+        f"epochs' clocks); the step-bound ceiling {step_audio / ctx['step_ms_bf16'] * 1e3:.1f} "
+        f"({step_audio:.1f} audio-s a step, {ctx['step_ms_bf16']:.2f} ms a bf16 step, phase 11c)")
+    phase("device cache parity", t0)
+    return launches
+
+
+# -- the export path ------------------------------------------------------------
+
+# Each reloaded export against the engine's plain forward: atol =
+# EXPORT_TOL * max|reference| (the artefact's convs run on BN-folded
+# weights, which round differently).
+EXPORT_TOL = 1e-5
+
+
+def run_export(dev, tmp: str, checkpoint: str) -> None:
+    """Phase 18: `cli.export` from phase 8's last checkpoint writes the npz
+    and the `torch.export` artefact; each, reloaded on the card, gives the
+    engine's plain forward on a 6 s request within EXPORT_TOL of
+    max|reference|."""
+    from fullycnnspeechenhancement_torch import Config, ModelConfig
+    from fullycnnspeechenhancement_torch.cli import export as export_cli
+    from fullycnnspeechenhancement_torch.export import load_torch_export
+    from fullycnnspeechenhancement_torch.infer import InferenceEngine
+
+    ini = os.path.join(tmp, "export.cfg")
+    with open(ini, "w") as f:
+        f.write("[model]\nnet_work=FullyCNNV2\n")
+    npz, pt2 = os.path.join(tmp, "export", "v2.npz"), os.path.join(tmp, "export", "v2.pt2")
+    os.makedirs(os.path.dirname(npz), exist_ok=True)
+    written = export_cli.main(["--cfg", ini, "--checkpoint", checkpoint, "--npz", npz, "--torch-export", pt2,
+                               "--device", str(dev)])
+    if written != [npz, pt2]:
+        raise AssertionError(f"cli.export wrote {written}")
+    config = Config(model=ModelConfig(net_work="FullyCNNV2"))
+    ref_engine = InferenceEngine(config, checkpoint=checkpoint, device=dev)
+    npz_engine = InferenceEngine(config, checkpoint=npz, device=dev)
+    sig = speech_like(np.random.default_rng(18), 6.0)
+    n = len(sig)
+    wav = torch.zeros(1, ref_engine._pad_len(n), device=dev)
+    wav[0, :n] = torch.as_tensor(sig, device=dev)
+    lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+    program = load_torch_export(pt2)
+    with torch.inference_mode():
+        mag = ref_engine.ext(wav, lengths)[..., None]  # [1, T, F, 1]
+        T = mag.shape[1]
+        ref, _ = ref_engine.model.apply(ref_engine.params, ref_engine.bn_state, mag)
+        got_npz, _ = npz_engine.model.apply(npz_engine.params, npz_engine.bn_state, mag)
+        x = torch.zeros(1, 512, mag.shape[2], 1, device=dev)
+        x[:, :T] = mag
+        got_pt2 = program.module()(x)[:, :T]
+    scale = ref.abs().max().item()
+    e_npz = check_close("npz export", got_npz, ref, 0.0, EXPORT_TOL * scale)
+    e_pt2 = check_close("torch.export artefact", got_pt2, ref, 0.0, EXPORT_TOL * scale)
+    log(f"export from {os.path.basename(checkpoint)}: npz {os.path.getsize(npz)} B, torch.export "
+        f"{os.path.getsize(pt2)} B; on a 6 s request (T={T}, padded to 512 frames for the artefact) against "
+        f"the engine's plain forward: npz max abs err {e_npz:.3e}, artefact {e_pt2:.3e} (max|ref| {scale:.3e})")
+
+
 # The rate of independent mma.sync.m16n8k8 TF32 products (and, in the
 # second kernel, m16n8k16 bf16 ones) when nothing else is issued, A and B
 # from 2 and 8 register sets as in blocked_dw.cu: the most that kernel's
@@ -2371,6 +2828,19 @@ def main() -> int:
         t0 = time.perf_counter()
         evaluation = run_evaluation(dev, tmp, last_checkpoint)
         phase("evaluation path", t0)
+        t0 = time.perf_counter()
+        run_streaming(dev, tmp)
+        phase("streaming", t0)
+        cache_launches = run_device_cache(dev, tmp, train_ctx)
+        t0 = time.perf_counter()
+        run_export(dev, tmp, last_checkpoint)
+        phase("export", t0)
+    dw_bf16_entry["launches_by_path"] = {
+        "host_loader": dw_bf16_entry["launches"],
+        "device_cache_resident": cache_launches["resident"],
+        "device_cache_rotating": cache_launches["rotating"],
+    }
+    dw_bf16_entry["launches"] = sum(dw_bf16_entry["launches_by_path"].values())
     stack_entry["launches_by_path"] = {"serving": stack_entry["launches"], "evaluation": evaluation["launches"]}
     stack_entry["launches"] += evaluation["launches"]
     stack_entry["max_abs_err"] = max(stack_entry["max_abs_err"], evaluation["max_abs_err"])

@@ -3,10 +3,13 @@
 The R-CED / CR-CED spectral-mapping denoisers (V1/V2/V3) on an NVIDIA
 H100.  Serving: STFT analysis, the conv stack in eval mode (layer by layer
 through cuDNN, or its inner layers fused into one hand-written CUDA
-kernel), and the reference's waveform rebuild.  Training in float32: the
-host loader, training-mode BN, the freq-to-depth (blocked) model whose
-weight gradient can run in a second hand-written CUDA kernel, TF Adam
-under the Noam schedule, checkpoints and `cli/train`.  Evaluation: STOI,
+kernel), and the reference's waveform rebuild; a streaming denoiser
+(`streaming.py`, `cli/stream`) and export to npz and `torch.export`
+(`export.py`, `cli/export`).  Training in float32 or bf16: the host
+loader or the GPU-resident corpus cache (`data/device_cache.py`, batches
+rebuilt on the card), training-mode BN, the freq-to-depth (blocked) model
+whose weight gradient can run in a second hand-written CUDA kernel, TF
+Adam under the Noam schedule, checkpoints and `cli/train`.  Evaluation: STOI,
 SDR and PESQ (the native P.862 runtime, built with g++ on first use) in
 a fork-based scoring pool, for `cli/test` and in-training validation.
 The JAX package `fullycnnspeechenhancement_tpu` beside it is the

@@ -1,6 +1,6 @@
 """Command-line entry points mirroring the reference's scripts, driven by
-the same INI config files.  This package ports `train`, `test`
-and `infer`."""
+the same INI config files: `train`, `test`, `infer`, `stream` and
+`export`."""
 
 from __future__ import annotations
 

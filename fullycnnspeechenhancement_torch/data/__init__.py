@@ -3,9 +3,9 @@
 The host decodes, resamples and mixes raw waveforms only; all DSP runs on
 the device inside the train step.  Batches are padded to static bucket
 shapes.  `native.py` binds the native host runtime (decode, resample,
-mixing, PESQ), built from `runtime/*.cc` on first use.  The GPU-resident
-corpus cache (`device_cache.py`) of the JAX package is not ported yet
-(ROADMAP.md).
+mixing, PESQ), built from `runtime/*.cc` on first use.  `device_cache.py`
+is the GPU-resident corpus cache: int16 corpora committed to the card
+once, batches rebuilt there from [B] metadata.
 """
 
 from fullycnnspeechenhancement_torch.data.audio_io import (  # noqa: F401

@@ -1,7 +1,9 @@
-"""Device selection and float32 numerics, shared by every entry point."""
+"""Device selection, float32 numerics and host-to-device copies, shared by
+every entry point."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -10,6 +12,16 @@ def disable_tf32() -> None:
     PyTorch flags; cuDNN's conv forward and backward default to TF32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device`.  To the card it goes through
+    pinned memory, so the copy is queued on the stream and the calling
+    thread does not wait for the device."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def resolve_device(device) -> torch.device:

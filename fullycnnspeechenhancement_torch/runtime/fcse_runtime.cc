@@ -11,7 +11,7 @@
 // default (half_len = 10*max(up,down), cutoff = 1/max(up,down)), so the
 // native and Python paths agree to float tolerance.
 //
-// Build: make -C fullycnnspeechenhancement_tpu/runtime
+// Build: g++, on first use, by ../data/native.py (native.build()).
 // API contract mirrored in ../data/native.py.
 
 #include <cmath>

@@ -201,14 +201,17 @@ def pack_step_metrics(metrics) -> torch.Tensor:
 def make_multi_step(step_fn):
     """K steps over a batch with leading steps axis:
     (state, Batch of [K, B, ...] tensors) -> (state, packed metrics [K, 2]).
+    Any named tuple of [K, ...] tensors with a `lengths` field serves as
+    the batch (train/cached_step.py passes its `Meta`); step k gets the
+    same tuple of each field's k-th slice.
 
     The JAX package scans the K steps in one device program; here they are
     a Python loop of K steps whose metrics stay on the device."""
 
     def multi_step(state: TrainState, batches: Batch):
         packed = []
-        for k in range(batches.mix_wav.shape[0]):
-            b = Batch(*(None if f is None else f[k] for f in batches))
+        for k in range(batches.lengths.shape[0]):
+            b = type(batches)(*(None if f is None else f[k] for f in batches))
             state, m = step_fn(state, b)
             packed.append(pack_step_metrics(m))
         return state, torch.stack(packed)

@@ -1,25 +1,30 @@
 """Training engine: epoch loop, checkpointing, validation, telemetry.
 
-Counterpart of `fullycnnspeechenhancement_tpu/train/trainer.py` on its
-host-loader, single-device path.  The reference's `FullyCNNTrainer`
-(trainer.py:121-338) drives a TF Session with feed_dict; this engine runs
-train steps on one device (the card unless the caller asks for the CPU)
-with a prefetching loader, a background feeder thread that groups
-same-bucket batches and moves them to the device, one checkpoint per
-epoch, validation every `valid_every_epochs` epochs when the caller
-passes a validation loader (`eval/evaluator.py`, BN in batch-statistics
-mode as in the reference), and JSONL scalar telemetry.
+Counterpart of `fullycnnspeechenhancement_tpu/train/trainer.py` on one
+device.  The reference's `FullyCNNTrainer` (trainer.py:121-338) drives a
+TF Session with feed_dict; this engine runs train steps on one device
+(the card unless the caller asks for the CPU) from a prefetching host
+loader or from the GPU-resident corpus cache (`data/device_cache.py`,
+whose batches the cached steps rebuild on the device), with a background
+feeder thread that groups same-bucket batches and moves them to the
+device, one checkpoint per epoch, validation every `valid_every_epochs`
+epochs when the caller passes a validation loader (`eval/evaluator.py`,
+BN in batch-statistics mode as in the reference), and JSONL scalar
+telemetry.
 
 Hot loop: PyTorch enqueues device work and returns, and the loop never
 reads a per-step scalar.  Metrics accumulate as packed device tensors and
 come to the host in ONE copy every `num_iter_print` steps
 (`_flush_metrics`); the step counter has a host mirror.  With
 `steps_per_call > 1` the feeder stacks K same-bucket batches and one
-dispatch runs K optimizer steps (`make_multi_step`).
+dispatch runs K optimizer steps (`make_multi_step`, or
+`make_cached_multi_step` over the cache).  Under the rotating cache the
+feeder keys its K-groups on the loader's `generation`, so a group never
+mixes two shards' batches, and flushes a shard's residual batches when
+the next shard commits.
 
-Not ported yet, and each raises `NotImplementedError` naming its
-ROADMAP.md item: the GPU-resident corpus cache (`use_device_cache`, Queue
-1 item 8) and data parallelism (`data_parallel > 1`, item 10).
+Not ported yet: data parallelism (`data_parallel > 1` raises
+`NotImplementedError` naming its ROADMAP.md item, Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -36,8 +41,13 @@ import numpy as np
 import torch
 
 from fullycnnspeechenhancement_torch.config import Config
+from fullycnnspeechenhancement_torch.data.device_cache import (
+    CachedBatch,
+    DeviceCacheLoader,
+    RotatingDeviceCacheLoader,
+)
 from fullycnnspeechenhancement_torch.data.loader import DataLoader, LoaderBatch
-from fullycnnspeechenhancement_torch.device import disable_tf32, resolve_device
+from fullycnnspeechenhancement_torch.device import disable_tf32, host_to_device, resolve_device
 from fullycnnspeechenhancement_torch.eval.evaluator import Evaluator
 from fullycnnspeechenhancement_torch.eval.metrics import AverageMeter
 from fullycnnspeechenhancement_torch.models import get_model
@@ -46,6 +56,11 @@ from fullycnnspeechenhancement_torch.train.checkpoint import (
     find_checkpoint,
     import_reference_npz,
     load_params,
+)
+from fullycnnspeechenhancement_torch.train.cached_step import (
+    Meta,
+    make_cached_multi_step,
+    make_cached_train_step,
 )
 from fullycnnspeechenhancement_torch.train.profiling import StepProfiler
 from fullycnnspeechenhancement_torch.train.step import (
@@ -61,11 +76,6 @@ logger = logging.getLogger(__name__)
 
 class Trainer:
     def __init__(self, config: Config, device="cuda"):
-        if config.data.use_device_cache:
-            raise NotImplementedError(
-                "use_device_cache: the GPU-resident corpus cache is not ported "
-                "yet (ROADMAP.md Queue 1 item 8)"
-            )
         if config.train.data_parallel > 1:
             raise NotImplementedError(
                 f"data_parallel={config.train.data_parallel}: data parallelism "
@@ -79,6 +89,9 @@ class Trainer:
         self._step = make_train_step(config, self.model)
         self._steps_per_call = max(1, config.train.steps_per_call)
         self._multi_step = make_multi_step(self._step) if self._steps_per_call > 1 else None
+        self._cached_fns: dict = {}
+        self._cached_premixed = False
+        self._cached_loader = None
 
         self.state = create_train_state(config, self.model, device=self.device)
         self.ckpt = CheckpointManager(
@@ -148,30 +161,23 @@ class Trainer:
         with open(self._scalars_path, "a") as f:
             f.write(json.dumps(kv) + "\n")
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            # pinned, so the copy is queued on the stream and the feeder
-            # thread does not wait for the device
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
-    def _prep_single(self, b: LoaderBatch) -> Batch:
+    # `flats` is the cached preps' (below); a host batch carries its waveforms
+    def _prep_single(self, b: LoaderBatch, flats=None) -> Batch:
         return Batch(
-            self._to_device(b.mix_wav),
-            self._to_device(b.clean_wav),
-            self._to_device(b.lengths),
-            None if b.wav_scale is None else self._to_device(b.wav_scale),
+            host_to_device(b.mix_wav, self.device),
+            host_to_device(b.clean_wav, self.device),
+            host_to_device(b.lengths, self.device),
+            None if b.wav_scale is None else host_to_device(b.wav_scale, self.device),
         )
 
-    def _prep_multi(self, bufs: list) -> Batch:
+    def _prep_multi(self, bufs: list, flats=None) -> Batch:
         return Batch(
-            self._to_device(np.stack([x.mix_wav for x in bufs])),
-            self._to_device(np.stack([x.clean_wav for x in bufs])),
-            self._to_device(np.stack([x.lengths for x in bufs])),
+            host_to_device(np.stack([x.mix_wav for x in bufs]), self.device),
+            host_to_device(np.stack([x.clean_wav for x in bufs]), self.device),
+            host_to_device(np.stack([x.lengths for x in bufs]), self.device),
             None
             if bufs[0].wav_scale is None
-            else self._to_device(np.stack([x.wav_scale for x in bufs])),
+            else host_to_device(np.stack([x.wav_scale for x in bufs]), self.device),
         )
 
     def _dispatch(self, payload: Batch, k: int, epoch: int) -> None:
@@ -182,38 +188,103 @@ class Trainer:
             self.state, packed = self._multi_step(self.state, payload)
         self._note_steps(packed, k, epoch)
 
-    def _feed(self, train_loader, K: int):
+    # -- the device cache (data/device_cache.py) ---------------------------
+
+    def _cached_fn(self, bucket_frames: int, k: int):
+        """The cached step for (bucket, K), made on first use: the
+        bucket's sample length is known only from the loader."""
+        key = (bucket_frames, k)
+        fn = self._cached_fns.get(key)
+        if fn is None:
+            maker = make_cached_train_step if k == 1 else make_cached_multi_step
+            fn = maker(self._step, self.config.dsp.padded_samples(bucket_frames), self._cached_premixed)
+            self._cached_fns[key] = fn
+        return fn
+
+    def _prepare_cached(self, loader) -> None:
+        if loader.batch_size != self.config.train.batch_size:
+            raise ValueError(
+                f"cached loader batch size ({loader.batch_size}) must match "
+                f"config.train.batch_size ({self.config.train.batch_size}): the "
+                "loss normalization assumes the configured batch"
+            )
+        self._cached_premixed = loader.premixed
+        self._cached_loader = loader
+        # The resident loader commits now; the rotating one per rotation.
+        loader.activate(self.device)
+
+    def _prep_cached_single(self, b: CachedBatch, flats):
+        # `flats` is captured by the feeder when the loader yields the
+        # batch: under the rotating loader a batch rides with its shard
+        return b.bucket_frames, Meta.from_batch(b, self.device), flats
+
+    def _prep_cached_multi(self, bufs: list, flats):
+        return bufs[0].bucket_frames, Meta.stack(bufs, self.device), flats
+
+    def _dispatch_cached(self, payload, k: int, epoch: int) -> None:
+        bucket_frames, meta, (clean_flat, other_flat) = payload
+        self.state, out = self._cached_fn(bucket_frames, k)(self.state, clean_flat, other_flat, meta)
+        if k == 1:
+            out = pack_step_metrics(out)[None]
+        self._note_steps(out, k, epoch)
+
+    def _feed(self, train_loader, K: int, cached: bool = False):
         """Background feeder: consumes the loader, groups same-bucket
         batches for the multi-step path, and moves payloads to the device
         OFF the dispatch thread.  Yields (payload, k, audio_seconds); the
-        queue depth bounds device-side buffering to a couple of payloads."""
+        queue depth bounds device-side buffering to a couple of payloads.
+
+        Over the cache, groups are keyed by (bucket, generation) and each
+        batch carries the flats captured when it was received; when the
+        rotating loader commits its next shard, the previous shard's
+        residual batches go out at once, so its flats are not held to the
+        epoch's end."""
+        prep_one = self._prep_cached_single if cached else self._prep_single
+        prep_multi = self._prep_cached_multi if cached else self._prep_multi
         sr = self.config.dsp.sample_rate
         q: "queue.Queue" = queue.Queue(maxsize=2)
         stop = threading.Event()
         _SENTINEL = object()
 
+        def put_one(b, fl, audio):
+            q.put((prep_one(b, fl), 1, audio))
+
         def produce():
             try:
                 buffers: dict = {}
+                last_gen = None
                 for b in train_loader:
                     if stop.is_set():
                         return
+                    # the loader rotates only when advanced again, so these
+                    # are b's flats
+                    fl = self._cached_loader.flats() if cached else None
+                    gen = self._cached_loader.generation if cached else 0
+                    if last_gen is not None and gen != last_gen:
+                        for key in [key for key in buffers if key[1] != gen]:
+                            for b2, audio2, fl2 in buffers.pop(key):
+                                if stop.is_set():
+                                    return
+                                put_one(b2, fl2, audio2)
+                    last_gen = gen
                     audio = float(b.lengths.sum()) / sr
                     if K > 1:
-                        buf = buffers.setdefault(b.bucket_frames, [])
-                        buf.append((b, audio))
+                        key = (b.bucket_frames, gen)
+                        buf = buffers.setdefault(key, [])
+                        buf.append((b, audio, fl))
                         if len(buf) == K:
-                            q.put((self._prep_multi([x for x, _ in buf]), K,
-                                   sum(a for _, a in buf)))
-                            buffers[b.bucket_frames] = []
+                            group = [x for x, _, _ in buf]
+                            q.put((prep_multi(group, fl), K, sum(a for _, a, _ in buf)))
+                            buffers[key] = []
                     else:
-                        q.put((self._prep_single(b), 1, audio))
-                # residual same-bucket groups smaller than K run one at a time
+                        put_one(b, fl, audio)
+                # residual same-bucket groups smaller than K run one at a
+                # time, each with the flats captured when it was received
                 for buf in buffers.values():
-                    for b, audio in buf:
+                    for b, audio, fl in buf:
                         if stop.is_set():
                             return
-                        q.put((self._prep_single(b), 1, audio))
+                        put_one(b, fl, audio)
             except BaseException as e:  # surfaced to the consumer
                 q.put(e)
             finally:
@@ -282,8 +353,11 @@ class Trainer:
     ):
         log = log or logger
         epochs = epochs if epochs is not None else self.config.train.epochs
+        cached = isinstance(train_loader, (DeviceCacheLoader, RotatingDeviceCacheLoader))
         try:
-            self._run_epochs(train_loader, valid_loader, epochs, log)
+            if cached:
+                self._prepare_cached(train_loader)
+            self._run_epochs(train_loader, valid_loader, epochs, log, cached)
         finally:
             # Teardown even when an epoch raises: wait for the checkpoint
             # writes, stop a running trace and release the scoring workers
@@ -296,8 +370,9 @@ class Trainer:
                 finally:
                     self.evaluator.close()
 
-    def _run_epochs(self, train_loader, valid_loader, epochs, log):
+    def _run_epochs(self, train_loader, valid_loader, epochs, log, cached):
         K = self._steps_per_call
+        dispatch = self._dispatch_cached if cached else self._dispatch
         flush_every = max(1, self.config.train.num_iter_print)
         n_batches = len(train_loader)
         for epoch in range(self.start_epoch, epochs):
@@ -309,10 +384,10 @@ class Trainer:
             self._flush_t0 = time.perf_counter()
             t_data = time.perf_counter()
             steps_done = 0
-            for payload, k, audio_s in self._feed(train_loader, K):
+            for payload, k, audio_s in self._feed(train_loader, K, cached):
                 self.data_time.update(time.perf_counter() - t_data)
                 epoch_audio_s += audio_s
-                self._dispatch(payload, k, epoch)
+                dispatch(payload, k, epoch)
                 steps_done += k
                 if self._steps_since_flush >= flush_every:
                     self._flush_metrics(log, epoch, steps_done, n_batches)

@@ -123,6 +123,11 @@ def test_port_imports_no_jax():
     banned = ("jax", "jaxlib", "fullycnnspeechenhancement_tpu")
     sources = list(_port_sources())
     assert len(sources) > 15
+    for module in ("streaming.py", "export.py", os.path.join("cli", "stream.py"),
+                   os.path.join("cli", "export.py"), os.path.join("data", "device_cache.py"),
+                   os.path.join("train", "cached_step.py")):
+        assert any(p.endswith(os.path.join("fullycnnspeechenhancement_torch", module))
+                   for p in sources), module
     for path in sources:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

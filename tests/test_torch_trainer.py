@@ -149,7 +149,6 @@ def test_warm_start_from_a_port_checkpoint(tmp_path, corpus):
 @pytest.mark.parametrize(
     "section,line,item",
     [
-        ("data", "use_device_cache=True", "Queue 1 item 8"),
         ("training", "data_parallel=2", "Queue 1 item 10"),
     ],
 )
