@@ -202,7 +202,39 @@ for an H100) and `nvcc`.  It imports only the port
  18. `cli.export.main` from phase 8's last checkpoint writes the npz and
      the `torch.export` artefact; each, reloaded on the card, gives the
      engine's plain forward on a 6 s request within 1e-5 of max|ref|;
- 19. prints a `kernels` JSON line (six entries: `rced_stack` and
+  The data-parallel path (`parallel/`, the DP `Trainer`; the dW kernel on
+  every rank), time-sharded serving and dataset preparation:
+ 19. two ranks spawned on the one card join a gloo group (NCCL refuses
+     two ranks on one device; the log says so) and each runs `cli.train`
+     with `data_parallel=2`: phase 8's float32 profile for its 16 steps
+     (32 rows a rank, the host loader), then the bf16 `_tpu` profile as
+     written (the resident device cache) for 8 steps, each rank's dW
+     launch counts set to 0 just before and read just after each run:
+     14 `blocked_dw` launches a step a rank in float32, 14
+     `dw_wgmma_kernel` ones in bf16, none of the others; the float32 run
+     against phase 8's single-process run from the same initial state on
+     the same global batches (per-step losses rtol 1e-3; Adam's moments
+     within PARITY_MOMENT_TOL of their global scale, the params' change
+     over the run within PARITY_UPDATE_TOL of its norm, every parameter
+     within twice the run's summed lr of phase 8's, the BN moving
+     statistics rtol 1e-3, atol 1e-5, each leaf's largest error logged),
+     the bf16 run against phase 17a's first epoch (losses, Adam's
+     moments and each BN statistic against its scale within phase 11b's
+     budget, the params' change within PARITY_UPDATE_TOL); each rank's
+     step time, all-reduces and their time in one step, and rank 0's idle
+     share, for the record only (two ranks on one card measure no
+     scaling);
+     then a one-rank NCCL group all-reduces on the card;
+ 20. phase 3's fused V2 engine built with `mesh=make_mesh(4, devices=
+     [cuda:0] * 4)`: a 60 s request (past the 32 s top bucket) through the
+     time-sharded halo forward, within 1e-4 of max|ref| of the meshless
+     engine's; a 6 s request through the bucketed path, equal to the
+     meshless engine's bit for bit; both timed, not gated;
+ 21. an aishell_1-shaped tree and a noise tree of made-up 16 kHz wavs
+     through the port's `data.prepare.aishell_1` and `noise` to 8 kHz
+     manifests, read back through `SpeechDataset` (host code, a quick
+     check);
+ 22. prints a `kernels` JSON line (six entries: `rced_stack` and
      `blocked_dw` in float32 and in bf16, each with its "dtype", the bf16
      `rced_stack` the wgmma kernel with conv_layer_bf16's time as
      `mma_sync_ms`, then
@@ -210,7 +242,9 @@ for an H100) and `nvcc`.  It imports only the port
      launches are the serving path's and the evaluation path's, each also
      by path, and its max_abs_err covers phases 6, 7 and 15; the bf16
      `blocked_dw`'s launches are the host loader's (11a) and both device
-     caches' (17a, 17b), each also by path), the card line again, and
+     caches' (17a, 17b) and the DP ranks' (19), each also by path; the
+     float32 `blocked_dw`'s the single-process run's (8) and the DP
+     ranks' (19)), the card line again, and
      last the line {"ok": true, "device": {...}}.
 
 Each phase prints its wall time.  Any failed phase raises, so the script
@@ -898,13 +932,13 @@ def write_corpus(root: str, rng) -> dict:
 def write_train_ini(path: str, root: str, corpus: dict, dw_pallas: bool = True,
                     base_checkpoint: str = "", compute_dtype: str = "float32",
                     epochs: int = EPOCHS, valid_every: int = VALID_EVERY,
-                    use_device_cache: bool = False, extra_data: str = "") -> str:
+                    use_device_cache: bool = False, extra_data: str = "", extra_train: str = "") -> str:
     """The TPU training profile (work/aishell_1/cfg/fully_cnn_train_tpu.cfg)
     in `compute_dtype` (the profile's is bfloat16), with dw_pallas, the
     host loader unless `use_device_cache` (the profile's setting), `epochs`
     epochs, validation every `valid_every` epochs on the premixed
-    validation manifest, paths under `root`, and `extra_data` lines in
-    [data]."""
+    validation manifest, paths under `root`, and `extra_train` and
+    `extra_data` lines in [training] and [data]."""
     with open(path, "w") as f:
         f.write(
             "[training]\n"
@@ -912,7 +946,7 @@ def write_train_ini(path: str, root: str, corpus: dict, dw_pallas: bool = True,
             f"continue_train={not base_checkpoint}\n"
             f"checkpoints_path={root}/checkpoints\nbase_checkpoint_file={base_checkpoint}\n"
             f"num_iter_print=50\nlog_dir={root}/log\nsteps_per_call=8\n"
-            f"valid_every_epochs={valid_every}\n"
+            f"valid_every_epochs={valid_every}\n{extra_train}"
             f"[model]\nnet_arch=RCED\nnet_work=FullyCNNV2\ncompute_dtype={compute_dtype}\n"
             f"blocked_compute=True\nblocked_fb=8\ndw_pallas={dw_pallas}\n"
             f"[data]\ntrain_manifest_path={corpus['clean']}\n"
@@ -2481,6 +2515,400 @@ def run_export(dev, tmp: str, checkpoint: str) -> None:
         f"the engine's plain forward: npz max abs err {e_npz:.3e}, artefact {e_pt2:.3e} (max|ref| {scale:.3e})")
 
 
+# -- data parallelism, time-sharded serving, dataset preparation -------------
+
+# Phase 19: two ranks share the card over gloo (NCCL refuses two ranks on
+# one device), so they measure nothing about scaling.  The DP run starts
+# from the config seed's state, as phases 8 and 17a do, on the same global
+# batches; its ranks sum the BN moments and the gradients in another order,
+# and Adam's sign-like steps carry that rounding on (tests/test_torch_dp.py).
+# Over 16 warm-up steps the params move by a few lr (about 2e-5 in all), so
+# they are held by what the update changes, as phase 9 holds dw_pallas on
+# against off: Adam's moments (a dropped gradient sum halves mu), the
+# params' change over the run, and each param within twice the run's
+# summed lr (a step of Adam moves a param by about lr; tests/
+# test_torch_trainer.py holds the CPU DP run so).  The bf16 run is held to
+# phase 17a's first epoch within phase 11b's bf16 budget: its losses, and
+# its moments and BN statistics against their scale (the two runs round
+# different activations to bf16 where the BN sums differ in the last bit,
+# so a statistic near 0 differs by more than a float32 rtol).
+DP_RANKS = 2
+DP_LOSS_RTOL = 1e-3
+DP_BN_RTOL, DP_BN_ATOL = 1e-3, 1e-5  # tests/test_device_cache.py:635's DP Trainer
+DP_TIMEOUT_S = 600
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dp_step_timing(trainer, rank: int, device) -> dict:
+    """One more DP step of `trainer` on its first batch: its host time (to
+    a synchronize), then in a second step its all-reduces, each timed from
+    a synchronize before it to one after it, then on rank 0 its idle share
+    under torch.profiler (rank 1 runs the same steps unprofiled; the
+    profiler sees only its own process's device work)."""
+    import torch.distributed as dist
+
+    from fullycnnspeechenhancement_torch.cli import train as train_cli
+
+    if trainer._cached_loader is not None:
+        ld = trainer._cached_loader
+        bucket, meta, flats = trainer._prep_cached_single(next(iter(ld)), ld.flats())
+        fn = trainer._cached_fn(bucket, 1)
+
+        def step():
+            trainer.state, m = fn(trainer.state, *flats, meta)
+            return m
+    else:
+        loader = train_cli.build_loaders(trainer.config, 2)[0]
+        loader.set_epoch(0)
+        payload = trainer._prep_single(next(iter(loader)))
+
+        def step():
+            trainer.state, m = trainer._step(trainer.state, payload)
+            return m
+
+    step()
+    _sync(device)
+    t0 = time.perf_counter()
+    step()
+    _sync(device)
+    out = {"step_ms": (time.perf_counter() - t0) * 1e3}
+    real, spent = dist.all_reduce, []
+
+    def timed(t, *a, **kw):
+        _sync(device)
+        t1 = time.perf_counter()
+        r = real(t, *a, **kw)
+        _sync(device)
+        spent.append((time.perf_counter() - t1) * 1e3)
+        return r
+
+    dist.all_reduce = timed
+    try:
+        step()
+    finally:
+        dist.all_reduce = real
+    out.update(collective_ms=sum(spent), all_reduces=len(spent))
+    if rank == 0 and torch.device(device).type == "cuda":
+        host_ms, busy_ms, _ = device_busy_ms(step, reps=2)
+        out.update(host_ms=host_ms, busy_ms=busy_ms)
+    else:
+        for _ in range(3):
+            step()
+    _sync(device)
+    return out
+
+
+def _dp_rank(rank: int, init_method: str, inis: dict, out_dir: str, device: str) -> None:
+    """One of phase 19's ranks, a spawned process: joins the gloo group,
+    then trains each INI through `cli.train.main` (the Trainer of
+    `data_parallel=2`), its dW launch counts set to 0 just before and read
+    just after each run, then times one more step (`_dp_step_timing`)."""
+    import torch.distributed as dist
+
+    from fullycnnspeechenhancement_torch.cli import train as train_cli
+    from fullycnnspeechenhancement_torch.device import disable_tf32
+    from fullycnnspeechenhancement_torch.ops import blocked_dw
+    from fullycnnspeechenhancement_torch.parallel import multihost
+
+    disable_tf32()
+    multihost.initialize_multihost(init_method, DP_RANKS, rank, backend="gloo", device=device,
+                                   timeout_s=DP_TIMEOUT_S)
+    out = {}
+    try:
+        for tag, ini in inis.items():
+            blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+            t0 = time.perf_counter()
+            trainer = train_cli.main(["--cfg", ini, "--device", device, "--num-works", "4"])
+            _sync(device)
+            out[tag] = {
+                "float32": blocked_dw.launches, "bf16_wgmma": blocked_dw.launches_bf16,
+                "bf16_mma_sync": blocked_dw.launches_bf16_mma_sync, "wall_s": time.perf_counter() - t0,
+                "steps": trainer._host_step, "rows": trainer.config.train.batch_size // DP_RANKS,
+            }
+            out[tag].update(_dp_step_timing(trainer, rank, device))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_state_failures(what: str, got: dict, ref: dict, p0: dict, moment_tol: float,
+                      drift: float = None, bn_tol: float = None) -> list:
+    """The DP run's checkpoint `got` against the single process's `ref`
+    (both from the initial params `p0`): Adam's moments against their
+    global scale (within `moment_tol`), the params' change over the run
+    against its norm (PARITY_UPDATE_TOL), with `drift` every param within
+    it of `ref`'s, and the BN moving statistics (elementwise within
+    DP_BN_RTOL, DP_BN_ATOL; with `bn_tol`, each leaf within it of the
+    leaf's largest value).  Logs every error; returns what failed."""
+    failures = []
+    for m in ("mu", "nu"):
+        err = global_err(flat_leaves(got["opt_state"][m]), flat_leaves(ref["opt_state"][m]))
+        log(f"{what}: Adam {m} off by {err:.3e} of its global scale (tolerance {moment_tol:.3e})")
+        if not err <= moment_tol:
+            failures.append(f"{what} Adam {m} off by {err:.3e} of its scale")
+    after, ref_after = flat_leaves(got["params"]), flat_leaves(ref["params"])
+    err = update_err(after, ref_after, p0)
+    moved = max(np.abs(ref_after[k] - p0[k]).max() for k in p0)
+    diff = {k: np.abs(after[k] - v).max() for k, v in ref_after.items()}
+    worst = sorted(diff.items(), key=lambda kv: -kv[1])
+    log(f"{what}: the params' change differs by {err:.3e} of its norm (tolerance {PARITY_UPDATE_TOL}); the "
+        f"single run moved a param by up to {moved:.3e}; largest differences "
+        + ", ".join(f"{'/'.join(k)} {v:.3e}" for k, v in worst[:4])
+        + ("" if drift is None else f" (bound {drift:.3e}, twice the summed lr)"))
+    if not err <= PARITY_UPDATE_TOL:
+        failures.append(f"{what} param update off by {err:.3e} of its norm")
+    if drift is not None and not worst[0][1] <= drift:
+        failures.append(f"{what} param {'/'.join(worst[0][0])} off by {worst[0][1]:.3e} > {drift:.3e}")
+    bn, ref_bn = flat_leaves(got["bn_state"]), flat_leaves(ref["bn_state"])
+    rel = {k: np.abs(bn[k] - v).max() / max(np.abs(v).max(), 1e-30) for k, v in ref_bn.items()}
+    k = max(rel, key=rel.get)
+    log(f"{what}: BN moving statistics ({len(rel)} leaves) largest relative error {rel[k]:.3e} ({'/'.join(k)}), "
+        f"median {np.median(list(rel.values())):.3e}")
+    if bn_tol is None:
+        bad = [k for k, v in ref_bn.items() if not np.allclose(bn[k], v, rtol=DP_BN_RTOL, atol=DP_BN_ATOL)]
+        limit = f"rtol {DP_BN_RTOL}, atol {DP_BN_ATOL}"
+    else:
+        bad = [k for k, v in rel.items() if not v <= bn_tol]
+        limit = f"{bn_tol:.3e} of their largest value"
+    if bad:
+        failures.append(f"{what} BN {['/'.join(k) for k in bad]} outside {limit}")
+    return failures
+
+
+def run_data_parallel(dev, tmp: str, corpus: dict, single_last: str) -> dict:
+    """Phase 19: `data_parallel=2` through `cli.train` in two spawned ranks
+    on the one card (gloo): phase 8's float32 profile for its 16 steps
+    against phase 8's single-process run (losses, every parameter and the
+    BN moving statistics), then the bf16 `_tpu` profile as written (the
+    resident device cache) for 8 steps against phase 17a's first epoch;
+    each rank's dW launches, step time, collective time and idle share;
+    then a one-rank NCCL group's all-reduce on the card.  Returns the
+    ranks' launches by run."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from fullycnnspeechenhancement_torch import load_ini_config
+    from fullycnnspeechenhancement_torch.models import get_model
+    from fullycnnspeechenhancement_torch.parallel import multihost
+    from fullycnnspeechenhancement_torch.train.checkpoint import read_checkpoint_file
+    from fullycnnspeechenhancement_torch.train.step import create_train_state
+
+    t0 = time.perf_counter()
+    model = get_model("FullyCNNV2")
+    n_dw = sum(1 for spec in model.layers if spec.kernel[0] == 1 and spec.kernel[1] < 129)
+    rank_device = str(dev) if dev.index is not None or dev.type != "cuda" else "cuda:0"
+    extra = f"data_parallel={DP_RANKS}\n"
+    roots = {"float32": os.path.join(tmp, "dp32"), "bf16": os.path.join(tmp, "dp16")}
+    inis = {
+        "float32": write_train_ini(os.path.join(tmp, "dp32.cfg"), roots["float32"], corpus,
+                                   valid_every=EPOCHS + 1, extra_train=extra),
+        "bf16": write_train_ini(os.path.join(tmp, "dp16.cfg"), roots["bf16"], corpus, compute_dtype="bfloat16",
+                                epochs=1, valid_every=2, use_device_cache=True, extra_train=extra),
+    }
+    log(f"data parallelism: {DP_RANKS} ranks spawned on one card ({rank_device}), backend gloo (NCCL refuses "
+        "two ranks on one device); no scaling is measured")
+    store = tempfile.mkdtemp(dir=tmp)
+    ctx = mp.start_processes(_dp_rank, args=(f"file://{store}/store", inis, tmp, rank_device), nprocs=DP_RANKS,
+                             join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the DP ranks still run after {DP_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(10)
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # float32 against phase 8
+    rows, _ = logged_losses(roots["float32"])
+    ref_rows, _ = logged_losses(os.path.join(tmp, "train"))
+    steps = len(rows)
+    for r, res in enumerate(ranks):
+        got = res["float32"]
+        log(f"DP float32 rank {r}: {got['steps']} steps of {got['rows']} rows in {got['wall_s']:.1f} s, blocked_dw "
+            f"launches {got['float32']} (bf16 {got['bf16_wgmma']} + {got['bf16_mma_sync']})")
+        if got["steps"] != steps or got["float32"] != n_dw * steps or got["bf16_wgmma"] or got["bf16_mma_sync"]:
+            raise AssertionError(f"DP float32 rank {r}: {got}, expected {n_dw * steps} float32 launches in "
+                                 f"{steps} steps")
+    losses = np.array([x["loss"] for x in rows])
+    ref_losses = np.array([x["loss"] for x in ref_rows])
+    if steps != EPOCHS * N_UTTS // B_TRAIN or len(ref_losses) != steps:
+        raise AssertionError(f"DP float32: {steps} steps logged, phase 8 {len(ref_losses)}")
+    rel = np.abs(losses - ref_losses) / np.abs(ref_losses)
+    log(f"DP float32 losses {losses.tolist()}; phase 8's {ref_losses.tolist()}; largest relative error "
+        f"{rel.max():.3e}")
+    np.testing.assert_allclose(losses, ref_losses, rtol=DP_LOSS_RTOL)
+    failures = []
+    p0 = flat_leaves(create_train_state(load_ini_config(inis["float32"]), model, device="cpu").params)
+    dp32 = read_checkpoint_file(os.path.join(roots["float32"], "checkpoints", "RCED_FullyCNNV2",
+                                             f"epoch_{EPOCHS - 1}.pt"))
+    failures += dp_state_failures("DP float32", dp32, read_checkpoint_file(single_last), p0,
+                                  PARITY_MOMENT_TOL, drift=2 * sum(x["lr"] for x in ref_rows))
+
+    # bf16 against phase 17a's first epoch
+    rows16, _ = logged_losses(roots["bf16"])
+    ref16, _ = logged_losses(os.path.join(tmp, "cache_resident"))
+    steps16 = len(rows16)
+    for r, res in enumerate(ranks):
+        got = res["bf16"]
+        log(f"DP bf16 rank {r}: {got['steps']} steps of {got['rows']} rows in {got['wall_s']:.1f} s, dw_wgmma_kernel "
+            f"launches {got['bf16_wgmma']} (bf16 mma.sync {got['bf16_mma_sync']}, float32 {got['float32']})")
+        if got["steps"] != steps16 or got["bf16_wgmma"] != n_dw * steps16 or got["float32"] or got["bf16_mma_sync"]:
+            raise AssertionError(f"DP bf16 rank {r}: {got}, expected {n_dw * steps16} wgmma launches in "
+                                 f"{steps16} steps")
+    losses16 = np.array([x["loss"] for x in rows16])
+    ref16 = np.array([x["loss"] for x in ref16[:steps16]])
+    if steps16 != N_UTTS // B_TRAIN or len(ref16) != steps16:
+        raise AssertionError(f"DP bf16: {steps16} steps logged, phase 17a's first epoch {len(ref16)}")
+    rel16 = np.abs(losses16 - ref16) / np.abs(ref16)
+    log(f"DP bf16 losses {losses16.tolist()}; phase 17a's first epoch {ref16.tolist()}; largest relative "
+        f"error {rel16.max():.3e} (budget {PARITY_LOSS_RTOL_BF16})")
+    np.testing.assert_allclose(losses16, ref16, rtol=PARITY_LOSS_RTOL_BF16)
+    dp16 = read_checkpoint_file(os.path.join(roots["bf16"], "checkpoints", "RCED_FullyCNNV2", "epoch_0.pt"))
+    ref16_blob = read_checkpoint_file(os.path.join(tmp, "cache_resident", "checkpoints", "RCED_FullyCNNV2",
+                                                   "epoch_0.pt"))
+    p0_16 = flat_leaves(create_train_state(load_ini_config(inis["bf16"]), model, device="cpu").params)
+    failures += dp_state_failures("DP bf16", dp16, ref16_blob, p0_16, PARITY_MOMENT_TOL_BF16,
+                                  bn_tol=PARITY_MOMENT_TOL_BF16)
+    if failures:
+        raise AssertionError("DP against the single process: " + "; ".join(failures))
+
+    for tag in ("float32", "bf16"):
+        for r, res in enumerate(ranks):
+            got = res[tag]
+            idle = "" if got.get("busy_ms") is None else (
+                f", device busy {got['busy_ms']:.2f} ms of {got['host_ms']:.2f} ms traced, idle share "
+                f"{1 - got['busy_ms'] / got['host_ms']:.3f}")
+            log(f"DP {tag} rank {r} (for the record, two ranks sharing one card): step {got['step_ms']:.2f} ms, "
+                f"{got['all_reduces']} all-reduces in {got['collective_ms']:.2f} ms a step (each timed between "
+                f"synchronizes){idle}")
+
+    # NCCL: a one-rank group on the card, started here and torn down
+    t1 = time.perf_counter()
+    multihost.initialize_multihost(f"file://{store}/nccl", 1, 0, backend="nccl", device=rank_device)
+    try:
+        x = torch.arange(1024, dtype=torch.float32, device=rank_device)
+        dist.all_reduce(x)
+        _sync(rank_device)
+        if not torch.equal(x.cpu(), torch.arange(1024, dtype=torch.float32)):
+            raise AssertionError("NCCL all-reduce of one rank changed its input")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    log(f"NCCL: a one-rank group ({backend}) started and all-reduced 1024 floats on the card in "
+        f"{time.perf_counter() - t1:.2f} s")
+    phase("data parallelism", t0)
+    return {tag: [res[tag]["float32"] + res[tag]["bf16_wgmma"] for res in ranks] for tag in ("float32", "bf16")}
+
+
+def run_time_sharded(dev, tmp: str) -> None:
+    """Phase 20: phase 3's fused V2 engine built with a mesh of the card
+    four times: a 60 s request (past the 32 s top bucket) runs through the
+    time-sharded halo forward (plain model, as in the JAX package), within
+    MAIN_TOL * max|ref| of the meshless engine's; a 6 s request keeps the
+    bucketed path and equals the meshless engine's bit for bit."""
+    from fullycnnspeechenhancement_torch import Config, ModelConfig
+    from fullycnnspeechenhancement_torch.infer import InferenceEngine
+    from fullycnnspeechenhancement_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    npz = os.path.join(tmp, "v2.npz")  # phase 3's weights
+    cfg = Config(model=ModelConfig(net_work="FullyCNNV2", fused_inference=True))
+    mesh = make_mesh(4, devices=[dev] * 4)
+    meshed = InferenceEngine(cfg, checkpoint=npz, device=dev, mesh=mesh)
+    plain = InferenceEngine(cfg, checkpoint=npz, device=dev)
+    calls = []
+    real = meshed._sharded_model
+
+    def recording(params, bn, mag):
+        calls.append(tuple(mag.shape))
+        return real(params, bn, mag)
+
+    meshed._sharded_model = recording
+    rng = np.random.default_rng(20)
+    for seconds, sharded in ((60.0, True), (6.0, False)):
+        sig = speech_like(rng, seconds)
+        before = len(calls)
+        got = meshed.denoise_array(sig)
+        ref = plain.denoise_array(sig)
+        if len(calls) - before != int(sharded):
+            raise AssertionError(f"{seconds} s request: {len(calls) - before} halo calls, expected {int(sharded)}")
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if not np.isfinite(got).all() or got.shape != sig.shape:
+            raise AssertionError(f"{seconds} s request: output {got.shape}, finite {np.isfinite(got).all()}")
+        if sharded and err > MAIN_TOL:
+            raise AssertionError(f"60 s through the halo: {err:.3e} of max|ref|, over {MAIN_TOL}")
+        if not sharded and not np.array_equal(got, ref):
+            raise AssertionError(f"6 s request with a mesh: {err:.3e} of max|ref| from the meshless engine")
+        times = {}
+        for name, eng in (("mesh", meshed), ("meshless", plain)):
+            t1 = time.perf_counter()
+            for _ in range(3):
+                eng.denoise_array(sig)
+            times[name] = (time.perf_counter() - t1) / 3 * 1e3
+        log(f"{seconds:.0f} s request: " + (f"halo path over {mesh.shape['data']} shards of {calls[-1][1] // 4} "
+            f"frames (T padded to {calls[-1][1]})" if sharded else "bucketed path") +
+            f", max abs err {err:.3e} of max|ref| {np.abs(ref).max():.4f} against the meshless fused engine; "
+            f"host ms mesh {times['mesh']:.2f}, meshless {times['meshless']:.2f} (not gated)")
+    phase("time-sharded serving", t0)
+
+
+def run_prepare(tmp: str) -> None:
+    """Phase 21: an aishell_1-shaped tree (16 kHz wavs under
+    ASR/aishell_1/data_aishell/wav/{train,dev,test}/<speaker>/) and a noise
+    tree (Noise/far/{train,dev,test}/), made up here, through the port's
+    `prepare` modules to 8 kHz manifests, read back through the port's
+    `SpeechDataset`.  Host code: a quick check, not a card measurement."""
+    from fullycnnspeechenhancement_torch.data import write_wav
+    from fullycnnspeechenhancement_torch.data.dataset import SpeechDataset
+    from fullycnnspeechenhancement_torch.data.prepare import aishell_1, noise
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    root = os.path.join(tmp, "prepare")
+    a1, nz = os.path.join(root, "ASR", "aishell_1"), os.path.join(root, "Noise", "far")
+    counts = {}
+    for split, spks in (("train", ["S0002", "S0003", "S0004"]), ("dev", ["S0724"]), ("test", ["S0764"])):
+        for spk in spks:
+            d = os.path.join(a1, "data_aishell", "wav", split, spk)
+            os.makedirs(d, exist_ok=True)
+            for u in range(3):
+                write_wav(os.path.join(d, f"B{spk}W{u}.wav"), speech_like(rng, rng.uniform(1.0, 3.0), 16000), 16000)
+        d = os.path.join(nz, split)
+        os.makedirs(d, exist_ok=True)
+        for u in range(2):
+            write_wav(os.path.join(d, f"n{u}.wav"), noise_like(rng, 4.0, 16000), 16000)
+        counts[split] = 3 * len(spks)
+    prefix_a1, prefix_nz = os.path.join(root, "manifests", "aishell_1"), os.path.join(root, "manifests", "noise")
+    aishell_1.prepare(a1, prefix_a1, SR, workers=2)
+    noise.prepare(nz, prefix_nz, SR, workers=2)
+    for split, n in counts.items():
+        ds = SpeechDataset(f"{prefix_a1}.{split}", f"{prefix_nz}.{split}", SR, seed=0)
+        if len(ds) != n:
+            raise AssertionError(f"prepare {split}: {len(ds)} utterances in the manifest, {n} written")
+        for i in range(len(ds)):
+            mix, clean = ds[i]
+            want = int(round(ds.items[i].duration * SR))
+            if len(mix) != len(clean) or abs(len(clean) - want) > 1 or not np.isfinite(mix).all():
+                raise AssertionError(f"prepare {split} item {i}: {len(mix)}/{len(clean)} samples, {want} listed")
+            if "8K" not in ds.items[i].audio_filepath:
+                raise AssertionError(f"prepare {split}: {ds.items[i].audio_filepath} is not the resampled copy")
+    log(f"prepare: aishell_1 and noise manifests for {counts} utterances, resampled 16 kHz -> {SR} Hz and "
+        "read back through SpeechDataset")
+    phase("prepare", t0)
+
+
 # The rate of independent mma.sync.m16n8k8 TF32 products (and, in the
 # second kernel, m16n8k16 bf16 ones) when nothing else is issued, A and B
 # from 2 and 8 register sets as in blocked_dw.cu: the most that kernel's
@@ -2835,11 +3263,20 @@ def main() -> int:
         t0 = time.perf_counter()
         run_export(dev, tmp, last_checkpoint)
         phase("export", t0)
+        dp_launches = run_data_parallel(dev, tmp, train_ctx["corpus"], last_checkpoint)
+        run_time_sharded(dev, tmp)
+        run_prepare(tmp)
+    dw_entry["launches_by_path"] = {"single_process": dw_entry["launches"]}
+    for r, n in enumerate(dp_launches["float32"]):
+        dw_entry["launches_by_path"][f"data_parallel_rank{r}"] = n
+    dw_entry["launches"] = sum(dw_entry["launches_by_path"].values())
     dw_bf16_entry["launches_by_path"] = {
         "host_loader": dw_bf16_entry["launches"],
         "device_cache_resident": cache_launches["resident"],
         "device_cache_rotating": cache_launches["rotating"],
     }
+    for r, n in enumerate(dp_launches["bf16"]):
+        dw_bf16_entry["launches_by_path"][f"device_cache_data_parallel_rank{r}"] = n
     dw_bf16_entry["launches"] = sum(dw_bf16_entry["launches_by_path"].values())
     stack_entry["launches_by_path"] = {"serving": stack_entry["launches"], "evaluation": evaluation["launches"]}
     stack_entry["launches"] += evaluation["launches"]

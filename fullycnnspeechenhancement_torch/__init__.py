@@ -9,7 +9,11 @@ kernel), and the reference's waveform rebuild; a streaming denoiser
 loader or the GPU-resident corpus cache (`data/device_cache.py`, batches
 rebuilt on the card), training-mode BN, the freq-to-depth (blocked) model
 whose weight gradient can run in a second hand-written CUDA kernel, TF
-Adam under the Noam schedule, checkpoints and `cli/train`.  Evaluation: STOI,
+Adam under the Noam schedule, checkpoints and `cli/train`, on one card or
+data-parallel over `torch.distributed` ranks with sync BN (`parallel/`).
+Time-sharded serving of long recordings over a device mesh
+(`parallel/halo.py`) and the dataset preparation scripts
+(`data/prepare/`).  Evaluation: STOI,
 SDR and PESQ (the native P.862 runtime, built with g++ on first use) in
 a fork-based scoring pool, for `cli/test` and in-training validation.
 The JAX package `fullycnnspeechenhancement_tpu` beside it is the

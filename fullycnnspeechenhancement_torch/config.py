@@ -17,10 +17,9 @@ Known reference quirks handled here (SURVEY.md Appendix A.1/A.2):
     (hamming / 256) and warn when an INI file asks for something the
     reference would silently ignore.
 
-Fields that belong to modules not yet ported (the device cache, data
-parallelism) are parsed all the same, so a config round-trips unchanged;
-the entry points raise `NotImplementedError` naming the ROADMAP.md item
-when one of them is set.
+Every field has a consumer in the port: `[training] data_parallel` runs
+the Trainer as one rank of a data-parallel group (`parallel/dp.py`), the
+`[data] use_device_cache` fields select the GPU-resident corpus cache.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """GPU-resident corpus cache and on-device SNR mixing.
 
-Counterpart of `fullycnnspeechenhancement_tpu/data/device_cache.py` on one
-device (the JAX package's mesh placement is not ported).  A host-fed
+Counterpart of `fullycnnspeechenhancement_tpu/data/device_cache.py`.  Under
+data parallelism every rank commits the whole corpus to its own device
+(the JAX package's replicated flats) and materializes only its rows of
+each batch's metadata (`parallel.dp.shard_meta`).  A host-fed
 training loop ships 32 kB of waveform per audio-second (mix and clean,
 float32) to the device every step.  This module instead commits the int16
 PCM corpora to the card ONCE and rebuilds every training batch there from

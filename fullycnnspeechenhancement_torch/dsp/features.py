@@ -141,13 +141,18 @@ class SpectrogramExtractor:
         return (t < counts[:, None]).to(torch.float32)
 
     def batch_max_frame_mask(
-        self, lengths: torch.Tensor, total_frames: int
+        self, lengths: torch.Tensor, total_frames: int, reduce_max=None
     ) -> torch.Tensor:
         """[1, T] 1.0 where the frame index is < the BATCH-MAX frame count.
 
         The region the reference's padded collate materializes; it is the
-        same for every row, so it stays [1, T] and broadcasts.
+        same for every row, so it stays [1, T] and broadcasts.  Under data
+        parallelism `lengths` holds this rank's rows and `reduce_max`
+        (`parallel.dp.DataParallel.max`) makes the count the global
+        batch's, so every rank masks the frames the whole batch keeps.
         """
         bm = torch.max(self.frame_counts(lengths))
+        if reduce_max is not None:
+            bm = reduce_max(bm)
         t = torch.arange(total_frames, device=lengths.device)[None, :]
         return (t < bm).to(torch.float32)

@@ -10,9 +10,11 @@ that the shapes a card sees stay few.
 Weights come from an npz bridge file, or from a checkpoint of this
 package (an `epoch_<N>.pt` file, or a run directory: its latest epoch).
 `config.model.fused_inference` selects the fused inner-stack kernel
-(`ops/rced_stack.py`) over the layer-by-layer cuDNN path.  The
-time-sharded path of the JAX engine (`mesh=`) is not ported yet
-(ROADMAP.md).
+(`ops/rced_stack.py`) over the layer-by-layer cuDNN path.  With `mesh`
+(`parallel.mesh.make_mesh`), an utterance longer than the top bucket
+runs its model through the time-sharded halo forward
+(`parallel/halo.py`) over the mesh's devices instead, as the JAX
+engine's `mesh=` path does.
 
 Numerics: the engine serves float32 and turns TF32 off for cuDNN convs
 and cuBLAS matmuls when it is built (`disable_tf32`).  cuDNN's default is
@@ -51,7 +53,16 @@ logger = logging.getLogger(__name__)
 
 class InferenceEngine:
     """Single-utterance denoiser on one device (the card unless the caller
-    asks for the CPU)."""
+    asks for the CPU).
+
+    Pass `mesh` (a `parallel.mesh.Mesh` with a 'data' axis) to route
+    utterances LONGER than the top padded-length bucket through the
+    time-sharded halo forward (`parallel.halo.make_time_sharded_forward`):
+    analysis and rebuild stay on the engine's device, the model (plain,
+    BN in inference mode, as in the JAX package) runs one time shard on
+    each device of the mesh with a 7-frame halo, and its output equals
+    the single-device forward's.  Shorter utterances keep the bucketed
+    path whatever the mesh."""
 
     def __init__(
         self,
@@ -59,6 +70,7 @@ class InferenceEngine:
         checkpoint: Optional[str] = None,
         bucket_seconds: Sequence[float] = (2.0, 4.0, 8.0, 16.0, 32.0),
         device="cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
         disable_tf32()
@@ -69,6 +81,12 @@ class InferenceEngine:
         self.bucket_samples = [
             int(s * config.dsp.sample_rate) for s in bucket_seconds
         ]
+        self.mesh = mesh
+        self._sharded_model = None
+        if mesh is not None:
+            from fullycnnspeechenhancement_torch.parallel.halo import make_time_sharded_forward
+
+            self._sharded_model = make_time_sharded_forward(self.model, mesh)
         self.params, self.bn_state = self._load(checkpoint)
         # Folded and packed once; every call launches the kernel once.
         self._packed = (
@@ -118,12 +136,32 @@ class InferenceEngine:
             pred = self.model.apply(self.params, self.bn_state, mag[..., None])[0][..., 0]
         return self.reb(pred, pre, pim)
 
+    @torch.inference_mode()
+    def _denoise_time_sharded(self, wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """Over-top-bucket utterances: analysis on the engine's device, the
+        model over the mesh's time shards, rebuild on the engine's device.
+        The frame axis zero-pads up to a multiple of the shard count:
+        exact, because TF SAME time padding is zeros too."""
+        from fullycnnspeechenhancement_torch.parallel.mesh import DATA_AXIS
+
+        mag, pre, pim = self.ext.magnitude_and_phase(wav, lengths)
+        t = mag.shape[1]
+        n_shards = self.mesh.shape[DATA_AXIS]
+        t_pad = -(-t // n_shards) * n_shards
+        if t_pad != t:
+            mag = torch.nn.functional.pad(mag, (0, 0, 0, t_pad - t))
+        pred = self._sharded_model(self.params, self.bn_state, mag)[:, :t]
+        return self.reb(pred, pre, pim)
+
     def denoise_array(self, signal: np.ndarray) -> np.ndarray:
         """float32 waveform -> denoised float32 waveform (same length)."""
         n = len(signal)
-        wav = torch.zeros(1, self._pad_len(n), dtype=torch.float32, device=self.device)
+        L = self._pad_len(n)
+        wav = torch.zeros(1, L, dtype=torch.float32, device=self.device)
         wav[0, :n] = torch.as_tensor(np.asarray(signal, np.float32), device=self.device)
         lengths = torch.tensor([n], dtype=torch.int32, device=self.device)
+        if self._sharded_model is not None and L > self.bucket_samples[-1]:
+            return self._denoise_time_sharded(wav, lengths)[0, :n].cpu().numpy()
         return self._denoise(wav, lengths)[0, :n].cpu().numpy()
 
     def denoise(self, audio_file: str, save_path: Optional[str] = None) -> str:

@@ -42,6 +42,7 @@ import torch
 
 from fullycnnspeechenhancement_torch.models.blocks import (
     bn_scale_shift,
+    moments_from_sums,
     tf_same_pads,
     updated_bn_state,
 )
@@ -121,13 +122,15 @@ def apply_blocked(
     fb: int = FB_DEFAULT,
     frame_mask=None,
     dw_pallas: bool = False,
+    reduce=None,
 ):
     """Drop-in equivalent of `ModelDef.apply` on NHWC [B, T, F, 1].
 
     Returns (y [B, T, F, 1], new_state).  Numerics match `apply` up to
     floating-point reduction order.  `frame_mask` ([B, T] or [1, T])
     restricts BN batch statistics to masked frames; the frequency pad-band
-    mask composes with it.
+    mask composes with it.  `reduce` takes the statistics over every
+    data-parallel rank (`blocks.moments_from_sums`).
     """
     B, T, F, _ = x.shape
     nb = -(-F // fb)
@@ -137,7 +140,7 @@ def apply_blocked(
     if is_training:
         m_bn = mask4.to(mdt)[..., None]  # [1, 1, NB, fb, 1]
         if frame_mask is None:
-            n_bn = B * T * F
+            n_bn = torch.tensor(float(B * T * F), dtype=mdt, device=x.device)
         else:
             # [1, T] batch-max masks stay broadcast; the denominator scales
             # by the broadcast factor.
@@ -178,8 +181,10 @@ def apply_blocked(
                 # Masked biased moments over (B, T, real F) per canonical
                 # channel, in at least float32.
                 y32 = y.to(mdt).reshape(B, T, nb, fb, cout)
-                mean = (y32 * m_bn).sum(dim=(0, 1, 2, 3)) / n_bn
-                var = (y32 * y32 * m_bn).sum(dim=(0, 1, 2, 3)) / n_bn - mean * mean
+                mean, var = moments_from_sums(
+                    (y32 * m_bn).sum(dim=(0, 1, 2, 3)), (y32 * y32 * m_bn).sum(dim=(0, 1, 2, 3)),
+                    n_bn, reduce,
+                )
                 new_state[spec.name] = updated_bn_state(s, mean, var)
             else:
                 mean, var = s["mean"], s["var"]

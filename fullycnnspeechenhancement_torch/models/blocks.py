@@ -45,21 +45,37 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return F.conv2d(F.pad(x, (pw0, pw1, ph0, ph1)), w, b)
 
 
-def masked_moments(y: torch.Tensor, frame_mask: Optional[torch.Tensor]):
+def moments_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: torch.Tensor, reduce=None):
+    """(mean, var) = (S/n, S2/n - mean^2) from per-channel sums `s1`, `s2`
+    and the count `n`.  `reduce` (a differentiable sum over data-parallel
+    ranks, `parallel.dp.DataParallel.sum`) first sums all three over the
+    ranks in one call, so the moments are the global batch's."""
+    if reduce is not None:
+        c = s1.shape[0]
+        tot = reduce(torch.cat([s1, s2, n.reshape(1).to(s1.dtype)]))
+        s1, s2, n = tot[:c], tot[c : 2 * c], tot[2 * c]
+    mean = s1 / n
+    return mean, s2 / n - mean * mean
+
+
+def masked_moments(y: torch.Tensor, frame_mask: Optional[torch.Tensor], reduce=None):
     """Biased batch (mean, var) per channel of NCHW `y` over (B, T, F), in
     at least float32 (float64 stays float64), as E[y^2] - mean^2.
 
     `frame_mask` ([B, T] per utterance, or [1, T]: the batch-max mask,
     which stays broadcast) restricts the moments to masked frames; the
-    denominator is sum(mask) * F * (B // rows of the mask)."""
+    denominator is sum(mask) * F * (B // rows of the mask).  `reduce`
+    takes the sums over every data-parallel rank (`moments_from_sums`)."""
     y32 = y.to(torch.promote_types(torch.float32, y.dtype))
     if frame_mask is None:
-        mean = y32.mean(dim=(0, 2, 3))
-        return mean, (y32 * y32).mean(dim=(0, 2, 3)) - mean * mean
+        if reduce is None:
+            mean = y32.mean(dim=(0, 2, 3))
+            return mean, (y32 * y32).mean(dim=(0, 2, 3)) - mean * mean
+        n = y32.new_tensor(y.shape[0] * y.shape[2] * y.shape[3])
+        return moments_from_sums(y32.sum(dim=(0, 2, 3)), (y32 * y32).sum(dim=(0, 2, 3)), n, reduce)
     m = frame_mask.to(y32.dtype)[:, None, :, None]
     n = m.sum() * y.shape[3] * (y.shape[0] // frame_mask.shape[0])
-    mean = (y32 * m).sum(dim=(0, 2, 3)) / n
-    return mean, (y32 * y32 * m).sum(dim=(0, 2, 3)) / n - mean * mean
+    return moments_from_sums((y32 * m).sum(dim=(0, 2, 3)), (y32 * y32 * m).sum(dim=(0, 2, 3)), n, reduce)
 
 
 def updated_bn_state(state, mean: torch.Tensor, var: torch.Tensor):
@@ -114,18 +130,21 @@ def conv_bn_relu_apply(
     use_act: bool = True,
     skip_input: Optional[torch.Tensor] = None,
     frame_mask: Optional[torch.Tensor] = None,
+    reduce=None,
 ):
     """Apply one block to NCHW `x` ([B, C, T, F]).  Returns (y, new_state).
 
     `new_state` is `state` unchanged in eval mode or without BN.  In
     training mode BN normalises with the batch moments over (B, T, F),
     restricted to the frames of `frame_mask` ([B, T] or [1, T]) when it is
-    given; activations at masked-out frames still flow forward."""
+    given, and over every data-parallel rank's rows with `reduce`
+    (`masked_moments`); activations at masked-out frames still flow
+    forward."""
     y = conv2d_same(x, params["w"].to(x.dtype), params["b"].to(x.dtype))
     new_state = state
     if use_norm:
         if is_training:
-            mean, var = masked_moments(y, frame_mask)
+            mean, var = masked_moments(y, frame_mask, reduce)
             new_state = updated_bn_state(state, mean, var)
         else:
             mean, var = state["mean"], state["var"]

@@ -70,6 +70,7 @@ class ModelDef:
         *,
         is_training: bool = False,
         frame_mask: Optional[torch.Tensor] = None,
+        reduce=None,
     ):
         """NHWC [B, T, F, 1] -> [B, T, F, 1].  Returns (y, new_state) like
         the JAX package's `apply`.
@@ -77,7 +78,8 @@ class ModelDef:
         Activations run in the dtype of `x` (the caller casts it to
         `compute_dtype`).  `frame_mask` ([B, T], or [1, T] for the
         row-identical batch-max mask) restricts training-mode BN's batch
-        statistics to masked frames (see blocks.conv_bn_relu_apply)."""
+        statistics to masked frames, and `reduce` takes them over every
+        data-parallel rank (see blocks.conv_bn_relu_apply)."""
         h = x.permute(0, 3, 1, 2)  # NCHW inside
         taps, new_state = {}, {}
         for spec in self.layers:
@@ -90,6 +92,7 @@ class ModelDef:
                 use_act=spec.use_act,
                 skip_input=taps[spec.skip_from] if spec.skip_from else None,
                 frame_mask=frame_mask,
+                reduce=reduce,
             )
             if spec.add_from is not None:
                 h = h + taps[spec.add_from]

@@ -120,13 +120,17 @@ def spectral_l2_loss(
     batch_size: int,
     mask: Optional[torch.Tensor] = None,
     normalize_mask: bool = False,
+    reduce=None,
 ) -> torch.Tensor:
     """sum((target - pred)^2) / configured_batch_size (trainer.py:146-147).
 
     `mask` ([B, T] or [1, T]) restricts the error to masked frames.  The
     parity default passes the batch-max mask unnormalized;
     `normalize_mask=True` also divides by the real-frame fraction (the
-    corrected `mask_loss` mode)."""
+    corrected `mask_loss` mode).  Under data parallelism the inputs are
+    this rank's rows, the result is its share of the global loss, and
+    `reduce` (a sum over the ranks) makes the real-frame fraction the
+    global batch's."""
     sq = torch.square(target - pred)
     if mask is None:
         return sq.sum() / batch_size
@@ -134,7 +138,12 @@ def spectral_l2_loss(
     total = (sq * m).sum()
     if not normalize_mask:
         return total / batch_size
-    return total / (batch_size * torch.clamp(m.mean(), min=1e-8))
+    if reduce is None:
+        frac = m.mean()
+    else:
+        real, count = reduce(torch.stack([m.sum(), m.new_tensor(m.numel())]))
+        frac = real / count
+    return total / (batch_size * torch.clamp(frac, min=1e-8))
 
 
 def _model_forward(config: Config, model: ModelDef):
@@ -149,16 +158,29 @@ def _model_forward(config: Config, model: ModelDef):
     return model.apply
 
 
-def make_train_step(config: Config, model: ModelDef):
+def make_train_step(config: Config, model: ModelDef, dp=None):
     """-> step(state, batch) -> (state, metrics {"loss", "lr", "step"}),
     each metric a device scalar.  Parameters and moments update in place;
-    the returned state holds the new BN statistics and step."""
+    the returned state holds the new BN statistics and step.
+
+    `dp` (a `parallel.dp.DataParallel`) makes the step one rank's of a
+    data-parallel group: `batch` is the rank's rows of the global batch,
+    the batch-max frame count, the BN moments and the `mask_loss` mask
+    mean are the global batch's, the gradients and the loss metric are
+    summed over the ranks before the update.  The global batch
+    (`config.train.batch_size`) must divide by the group's size.  The
+    multi-step and cached steps built over this step are the same rank's
+    (`make_multi_step`, `train.cached_step`)."""
+    if dp is not None:
+        dp.rows(config.train.batch_size)  # raises unless divisible
     ext = SpectrogramExtractor(config.dsp)
     schedule = noam_schedule(config.train.lr, config.train.warmup_steps)
     batch_size = config.train.batch_size
     mask_loss = config.train.mask_loss
     compute_dtype = compute_dtype_of(config)
     forward = _model_forward(config, model)
+    reduce = None if dp is None else dp.sum
+    reduce_max = None if dp is None else dp.max
 
     def train_step(state: TrainState, batch: Batch):
         with torch.no_grad():
@@ -168,19 +190,22 @@ def make_train_step(config: Config, model: ModelDef):
             if mask_loss:
                 mask = ext.frame_mask(batch.lengths, T)
             else:
-                mask = ext.batch_max_frame_mask(batch.lengths, T)
+                mask = ext.batch_max_frame_mask(batch.lengths, T, reduce_max)
         x = mix_mag[..., None].to(compute_dtype)
         with torch.enable_grad():
             pred, new_bn = forward(
-                state.params, state.bn_state, x, is_training=True, frame_mask=mask
+                state.params, state.bn_state, x, is_training=True, frame_mask=mask,
+                reduce=reduce,
             )
             loss = spectral_l2_loss(
                 pred.to(torch.float32), clean_mag[..., None], batch_size, mask,
-                normalize_mask=mask_loss,
+                normalize_mask=mask_loss, reduce=reduce,
             )
             names = [(n, k) for n in sorted(state.params) for k in sorted(state.params[n])]
             leaves = [state.params[n][k] for n, k in names]
             flat = torch.autograd.grad(loss, leaves)
+        if dp is not None:
+            *flat, loss = dp.sum_flat(list(flat) + [loss])
         grads = {}
         for (n, k), g in zip(names, flat):
             grads.setdefault(n, {})[k] = g

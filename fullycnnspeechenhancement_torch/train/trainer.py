@@ -23,8 +23,17 @@ feeder keys its K-groups on the loader's `generation`, so a group never
 mixes two shards' batches, and flushes a shard's residual batches when
 the next shard commits.
 
-Not ported yet: data parallelism (`data_parallel > 1` raises
-`NotImplementedError` naming its ROADMAP.md item, Queue 1 item 10).
+With `data_parallel = N > 1` the Trainer is one rank of a process group
+of N (`parallel/dp.py`; `cli.train` starts the ranks, or torchrun, or
+FCSE_MULTIHOST=1): every rank's loader yields the same global batch, and
+the feeder keeps the rank's rows (`shard_batch`, of the waveforms or of
+the device cache's metadata: the cache commits the whole corpus on every
+rank and materializes only those rows); the steps are the DP steps
+(sync BN, global masks, gradients summed over the ranks), the state is broadcast from rank 0 once and then
+kept equal by identical updates.  Rank 0 alone writes checkpoints, logs
+and scalars, and validates while the other ranks wait at a barrier.  A
+device without an index ("cuda") becomes the card of the rank's
+LOCAL_RANK.
 """
 
 from __future__ import annotations
@@ -51,6 +60,13 @@ from fullycnnspeechenhancement_torch.device import disable_tf32, host_to_device,
 from fullycnnspeechenhancement_torch.eval.evaluator import Evaluator
 from fullycnnspeechenhancement_torch.eval.metrics import AverageMeter
 from fullycnnspeechenhancement_torch.models import get_model
+from fullycnnspeechenhancement_torch.parallel import multihost
+from fullycnnspeechenhancement_torch.parallel.dp import (
+    DataParallel,
+    replicate,
+    shard_batch,
+    shard_stacked_batch,
+)
 from fullycnnspeechenhancement_torch.train.checkpoint import (
     CheckpointManager,
     find_checkpoint,
@@ -76,17 +92,17 @@ logger = logging.getLogger(__name__)
 
 class Trainer:
     def __init__(self, config: Config, device="cuda"):
-        if config.train.data_parallel > 1:
-            raise NotImplementedError(
-                f"data_parallel={config.train.data_parallel}: data parallelism "
-                "is not ported yet (ROADMAP.md Queue 1 item 10)"
-            )
+        n_dp = config.train.data_parallel
+        self.dp = DataParallel.current(n_dp) if n_dp > 1 else None
+        self.is_main = self.dp is None or self.dp.is_main
         self.device = resolve_device(device)
+        if self.dp is not None and self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", multihost.local_rank())
         disable_tf32()
         self.config = config
         self.model = get_model(config.model.net_work)
         self.run_name = f"{config.model.net_arch}_{config.model.net_work}"
-        self._step = make_train_step(config, self.model)
+        self._step = make_train_step(config, self.model, dp=self.dp)
         self._steps_per_call = max(1, config.train.steps_per_call)
         self._multi_step = make_multi_step(self._step) if self._steps_per_call > 1 else None
         self._cached_fns: dict = {}
@@ -110,6 +126,10 @@ class Trainer:
                 self.state = restored
                 self.start_epoch = epoch + 1
                 logger.info("resumed from epoch %d checkpoint", epoch)
+        if self.dp is not None:
+            # Every rank starts from rank 0's state and epoch.
+            replicate(self.state, self.dp)
+            self.start_epoch = self.dp.broadcast_object(self.start_epoch)
 
         # Host mirror of the device step counter: read once here, then
         # advanced on the host so the hot loop never waits on it.
@@ -161,24 +181,23 @@ class Trainer:
         with open(self._scalars_path, "a") as f:
             f.write(json.dumps(kv) + "\n")
 
-    # `flats` is the cached preps' (below); a host batch carries its waveforms
+    def _to_device(self, batch: Batch) -> Batch:
+        return Batch(*(None if x is None else host_to_device(x, self.device) for x in batch))
+
+    # `flats` is the cached preps' (below); a host batch carries its
+    # waveforms.  Under DP only the rank's rows go to the device.
     def _prep_single(self, b: LoaderBatch, flats=None) -> Batch:
-        return Batch(
-            host_to_device(b.mix_wav, self.device),
-            host_to_device(b.clean_wav, self.device),
-            host_to_device(b.lengths, self.device),
-            None if b.wav_scale is None else host_to_device(b.wav_scale, self.device),
-        )
+        batch = Batch(b.mix_wav, b.clean_wav, b.lengths, b.wav_scale)
+        return self._to_device(batch if self.dp is None else shard_batch(self.dp, batch))
 
     def _prep_multi(self, bufs: list, flats=None) -> Batch:
-        return Batch(
-            host_to_device(np.stack([x.mix_wav for x in bufs]), self.device),
-            host_to_device(np.stack([x.clean_wav for x in bufs]), self.device),
-            host_to_device(np.stack([x.lengths for x in bufs]), self.device),
-            None
-            if bufs[0].wav_scale is None
-            else host_to_device(np.stack([x.wav_scale for x in bufs]), self.device),
+        batch = Batch(
+            np.stack([x.mix_wav for x in bufs]),
+            np.stack([x.clean_wav for x in bufs]),
+            np.stack([x.lengths for x in bufs]),
+            None if bufs[0].wav_scale is None else np.stack([x.wav_scale for x in bufs]),
         )
+        return self._to_device(batch if self.dp is None else shard_stacked_batch(self.dp, batch))
 
     def _dispatch(self, payload: Batch, k: int, epoch: int) -> None:
         if k == 1:
@@ -196,6 +215,7 @@ class Trainer:
         key = (bucket_frames, k)
         fn = self._cached_fns.get(key)
         if fn is None:
+            # under DP `_step` is the rank's DP step
             maker = make_cached_train_step if k == 1 else make_cached_multi_step
             fn = maker(self._step, self.config.dsp.padded_samples(bucket_frames), self._cached_premixed)
             self._cached_fns[key] = fn
@@ -216,10 +236,12 @@ class Trainer:
     def _prep_cached_single(self, b: CachedBatch, flats):
         # `flats` is captured by the feeder when the loader yields the
         # batch: under the rotating loader a batch rides with its shard
-        return b.bucket_frames, Meta.from_batch(b, self.device), flats
+        meta = Meta.from_batch(b, self.device)
+        return b.bucket_frames, meta if self.dp is None else shard_batch(self.dp, meta), flats
 
     def _prep_cached_multi(self, bufs: list, flats):
-        return bufs[0].bucket_frames, Meta.stack(bufs, self.device), flats
+        meta = Meta.stack(bufs, self.device)
+        return bufs[0].bucket_frames, meta if self.dp is None else shard_stacked_batch(self.dp, meta), flats
 
     def _dispatch_cached(self, payload, k: int, epoch: int) -> None:
         bucket_frames, meta, (clean_flat, other_flat) = payload
@@ -329,20 +351,23 @@ class Trainer:
         wall = time.perf_counter() - self._flush_t0
         # Wall time per step across the flush window, data wait included.
         self.step_time.update(wall / max(len(rows), 1))
+        for row, v in zip(rows, vals):
+            row["loss"] = float(v[0])
+            row["lr"] = float(v[1])
+            self.train_loss.update(row["loss"])
+        self._pending = []
+        self._steps_since_flush = 0
+        self._flush_t0 = time.perf_counter()
+        if not self.is_main:
+            return
         with open(self._scalars_path, "a") as f:
-            for row, v in zip(rows, vals):
-                row["loss"] = float(v[0])
-                row["lr"] = float(v[1])
-                self.train_loss.update(row["loss"])
+            for row in rows:
                 f.write(json.dumps(row) + "\n")
         log.info(
             "epoch %d batch %d/%d loss %.4f(%.4f) data %.3fs(%.3fs) step-wall %.3fs(%.3fs)",
             epoch, batch_i, n_batches, self.train_loss.val, self.train_loss.avg,
             self.data_time.val, self.data_time.avg, self.step_time.val, self.step_time.avg,
         )
-        self._pending = []
-        self._steps_since_flush = 0
-        self._flush_t0 = time.perf_counter()
 
     def train(
         self,
@@ -394,11 +419,12 @@ class Trainer:
                 t_data = time.perf_counter()
             self._flush_metrics(log, epoch, n_batches, n_batches)
             wall = time.perf_counter() - epoch_t0
-            log.info(
-                "epoch %d done: %.1f audio-s in %.1f s (%.1f audio-s/s)",
-                epoch, epoch_audio_s, wall, epoch_audio_s / max(wall, 1e-9),
-            )
-            self.ckpt.save(epoch, self.state)
+            if self.is_main:
+                log.info(
+                    "epoch %d done: %.1f audio-s in %.1f s (%.1f audio-s/s)",
+                    epoch, epoch_audio_s, wall, epoch_audio_s / max(wall, 1e-9),
+                )
+                self.ckpt.save(epoch, self.state)
             if valid_loader is not None and (epoch + 1) % self.config.train.valid_every_epochs == 0:
                 self.validate(valid_loader, epoch, log)
 
@@ -406,8 +432,20 @@ class Trainer:
         """Score the validation set with the current params and BN state
         (batch statistics; `bn_state` is left as it was), dump its wav
         triplets under `audio_save_path/<epoch>` and log `valid_*`
-        scalars."""
+        scalars.  Under data parallelism rank 0 validates (the state is
+        the same on every rank) while the others wait at a barrier and
+        return None."""
         log = log or logger
+        if not self.is_main:
+            self.dp.barrier()
+            return None
+        try:
+            return self._validate(valid_loader, epoch, log)
+        finally:
+            if self.dp is not None:
+                self.dp.barrier()
+
+    def _validate(self, valid_loader: DataLoader, epoch: int, log):
         # The checkpoint write first: the scoring pool forks on first use,
         # and must not fork while the writer thread is busy.
         self.ckpt.wait()

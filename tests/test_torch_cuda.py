@@ -840,3 +840,52 @@ def test_blocked_freq_conv_bf16_rounds_dw_to_bf16_on_cuda(cuda_device):
     with pytest.raises(ValueError, match="two float32 or two bfloat16"):
         blocked_dw.blocked_dw(z0, g.float(), 4, 2)
     assert _dw_launches() == before
+
+
+def _dp_case(dtype):
+    rng = np.random.default_rng(90)
+    lens = (7200, 5600, 6400, 4000)
+    mix = np.zeros((4, 7200), np.float32)
+    clean = np.zeros((4, 7200), np.float32)
+    for i, n in enumerate(lens):
+        c = 0.4 * np.sin(2 * np.pi * (300 + 150 * i) * np.arange(n) / 8000)
+        clean[i, :n] = c
+        mix[i, :n] = c + 0.2 * rng.standard_normal(n)
+    params, bn = numpy_params("FullyCNNV2", seed=91, centred_bn=True)
+    return {
+        "net": "FullyCNNV2", "params": params, "bn": bn,
+        "model": dict(blocked_compute=True, blocked_fb=8, dw_pallas=True, compute_dtype=dtype),
+        "train": dict(batch_size=4, lr=1e-3, warmup_steps=100),
+        "batches": [(mix, clean, np.asarray(lens, np.int32))],
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dp_step_on_cuda_matches_cpu_plain(cuda_device, tmp_path, dtype):
+    """Two gloo ranks sharing the card run one DP step of V2 (blocked, fb 8,
+    dw_pallas): each launches the dW kernel 14 times on its rows, the
+    ranks end bit for bit equal, and in float32 the result matches the
+    single-process step on the CPU (its plain dW): loss rtol 1e-4, BN
+    statistics rtol 1e-4 atol 1e-6, Adam's mu within 1e-2 of its global
+    scale (the tolerances tests/test_torch_dp.py holds the port against
+    JAX with)."""
+    from torch_dp_ranks import dp_step_on_device, run_step_case, spawn
+
+    case = _dp_case(dtype)
+    spawn(dp_step_on_device, 2, tmp_path, (case, str(cuda_device), str(tmp_path)))
+    r0, r1 = (torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2))
+    for part in ("params", "bn", "mu"):
+        for key, v in r0[part].items():
+            np.testing.assert_array_equal(r1[part][key], v, err_msg=f"ranks differ: {part} {key}")
+    for r in (r0, r1):
+        assert r["launches"] == 14 and r["step"] == 1 and np.isfinite(r["loss"]).all()
+    if dtype != "float32":
+        return
+    ref = run_step_case(None, case, "cpu")
+    np.testing.assert_allclose(r0["loss"], ref["loss"], rtol=1e-4)
+    for key, v in ref["bn"].items():
+        np.testing.assert_allclose(r0["bn"][key], v, rtol=1e-4, atol=1e-6, err_msg=str(key))
+    scale = max(np.abs(v).max() for v in ref["mu"].values())
+    err = max(np.abs(r0["mu"][k] - v).max() for k, v in ref["mu"].items()) / scale
+    assert err < 1e-2, f"Adam mu off by {err:.3e} of its global scale"

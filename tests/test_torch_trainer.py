@@ -1,7 +1,7 @@
 """The port's Trainer and `cli/train` end to end on the CPU: one epoch on a
-small corpus, checkpoints, resume, warm start, serving the checkpoint, the
-options that are not ported yet, and the same run as the JAX Trainer's
-from one npz."""
+small corpus, checkpoints, resume, warm start, serving the checkpoint,
+data parallelism started by `cli/train` itself (two gloo ranks), and the
+same run as the JAX Trainer's from one npz."""
 
 import glob
 import json
@@ -22,10 +22,12 @@ from fullycnnspeechenhancement_torch import config as tcfg
 from fullycnnspeechenhancement_torch.cli import train as cli
 from fullycnnspeechenhancement_torch.data import DataLoader, SpeechDataset
 from fullycnnspeechenhancement_torch.infer import InferenceEngine
+from fullycnnspeechenhancement_torch.models import get_model
 from fullycnnspeechenhancement_torch.ops import blocked_dw
+from fullycnnspeechenhancement_torch.train.step import create_train_state
 from fullycnnspeechenhancement_torch.train.trainer import Trainer
 from test_torch_cuda import numpy_params, one_cpu_thread_per_worker  # noqa: F401
-from test_torch_train import assert_training_matches, flat_leaves
+from test_torch_train import UPDATE_TOL, assert_training_matches, flat_leaves, global_err, update_err
 
 
 @pytest.fixture(scope="module")
@@ -152,12 +154,56 @@ def test_warm_start_from_a_port_checkpoint(tmp_path, corpus):
         ("training", "data_parallel=2", "Queue 1 item 10"),
     ],
 )
-def test_unported_options_raise_naming_their_item(tmp_path, corpus, section, line, item):
+def test_unported_options_raise_naming_their_item(tmp_path, corpus, section, line, item, monkeypatch):
+    """The one option this test once expected to raise (`data_parallel=2`,
+    ROADMAP Queue 1 item 10) is ported: `cli.train --device cpu` starts two
+    gloo ranks itself, trains one epoch on this file's corpus, rank 0
+    validates (once, while rank 1 waits) and writes the checkpoint, which
+    matches the single-process run's: the
+    per-step losses at tests/test_train.py's DP tolerance (rtol 1e-5),
+    Adam's moments within 1e-3 of their global scale, the BN statistics
+    at tests/test_device_cache.py:635's DP-Trainer tolerance (rtol 1e-3,
+    atol 1e-5), and the params.  Where a gradient is rounding noise (0.7%
+    of the elements here) Adam's sign-like steps move the two runs apart
+    by up to 2 lr a step (test_torch_dp.py), so every param lies within
+    twice the steps' summed lr of the single run's, and the params'
+    change over the epoch within test_torch_train.UPDATE_TOL of its
+    norm."""
+    monkeypatch.setenv("FCSE_DIST_TIMEOUT_S", "60")  # a hung rank fails this test
     extra = {"extra_train": "", "extra_model": "", "extra_data": ""}
     extra[{"data": "extra_data", "training": "extra_train", "model": "extra_model"}[section]] = line + "\n"
-    ini = _ini(tmp_path / "x.cfg", corpus, str(tmp_path), **extra)
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["--cfg", ini, "--device", "cpu"])
+    dp_root, sd_root = str(tmp_path / "dp"), str(tmp_path / "sd")
+    # rank 0 validates after the epoch while rank 1 waits at the barrier
+    val = f"val_manifest_path={corpus['premixed']}\naudio_save_path={dp_root}/denoise\n"
+    extra["extra_data"] += val
+    extra["extra_train"] += "valid_every_epochs=1\n"
+    ini = _ini(tmp_path / "x.cfg", corpus, dp_root, **extra)
+    assert cli.main(["--cfg", ini, "--device", "cpu", "--num-works", "2"]) is None  # ranks ran
+    valid = [r for r in _scalars(dp_root) if any(k.startswith("valid_") for k in r)]
+    assert len(valid) == 1 and valid[0]["epoch"] == 0, valid
+    assert all(np.isfinite(v) for k, v in valid[0].items() if k.startswith("valid_"))
+    single = cli.main(["--cfg", _ini(tmp_path / "y.cfg", corpus, sd_root), "--device", "cpu", "--num-works", "2"])
+    blobs = [torch.load(os.path.join(r, "ckpt", "RCED_FullyCNNV2", "epoch_0.pt"), weights_only=False)
+             for r in (dp_root, sd_root)]
+    n = len(trainer_loader(ini))
+    assert int(single.state.step) == n > 1
+    dp_rows, sd_rows = ([r for r in _scalars(root) if "loss" in r] for root in (dp_root, sd_root))
+    assert [r["step"] for r in dp_rows] == list(range(n))
+    np.testing.assert_allclose([r["loss"] for r in dp_rows], [r["loss"] for r in sd_rows], rtol=1e-5)
+    dp, sd = blobs
+    for m in ("mu", "nu"):
+        err = global_err(flat_leaves(dp["opt_state"][m], port=True), flat_leaves(sd["opt_state"][m], port=True))
+        assert err < 1e-3, f"Adam {m}: {err:.3e} of its global scale"
+    for name, d in sd["bn_state"].items():
+        for k, v in d.items():
+            torch.testing.assert_close(dp["bn_state"][name][k], v, rtol=1e-3, atol=1e-5)
+    drift = 2 * sum(r["lr"] for r in sd_rows)
+    for name, d in sd["params"].items():
+        for k, v in d.items():
+            assert float((dp["params"][name][k] - v).abs().max()) <= drift, f"{name}/{k}"
+    p0 = flat_leaves(create_train_state(tcfg.load_ini_config(ini), get_model("FullyCNNV2"), device="cpu").params,
+                     port=True)
+    assert update_err(flat_leaves(dp["params"], port=True), flat_leaves(sd["params"], port=True), p0) < UPDATE_TOL
 
 
 def test_trainer_defaults_to_cuda(tmp_path, corpus):
