@@ -30,14 +30,20 @@ import torch
 
 def noam_schedule(init_lr: float, warmup_steps: float):
     """lr(step) = init_lr * warmup^0.5 * min((step+1)*warmup^-1.5,
-    (step+1)^-0.5).  `step` is a number or a tensor (float32 out)."""
+    (step+1)^-0.5).  `step` is a number or a tensor (float32 out).
+
+    A tensor step is evaluated in float64 and rounded to float32 once, as
+    the JAX package's schedule is under `jax_enable_x64` (there `step + 1.0`
+    is float64 and Adam's float32 bias correction rounds it).  Evaluated
+    in float32 (a reciprocal square root and three products) it lay up to
+    1.9e-7 from that value, a systematic difference in every update that a
+    float64 trajectory amplifies (tests/test_torch_trajectory.py)."""
 
     def schedule(step):
         if isinstance(step, torch.Tensor):
-            s = step.to(torch.float32) + 1.0
-            return init_lr * warmup_steps**0.5 * torch.minimum(
-                s * warmup_steps**-1.5, s.rsqrt()
-            )
+            s = step.to(torch.float64) + 1.0
+            lr = init_lr * warmup_steps**0.5 * torch.minimum(s * warmup_steps**-1.5, s**-0.5)
+            return lr.to(torch.float32)
         s = step + 1.0
         return init_lr * warmup_steps**0.5 * min(s * warmup_steps**-1.5, s**-0.5)
 
@@ -80,7 +86,12 @@ def tf_adam_update(
     count = state.count + 1
     t = count.to(torch.float32)
     lr = learning_rate(state.count) if callable(learning_rate) else learning_rate
-    alpha = lr * torch.sqrt(1.0 - torch.pow(b2, t)) / (1.0 - torch.pow(b1, t))
+    # The bias correction in float32, as the JAX package computes it; its
+    # square root taken in float64 and rounded once, which is the correctly
+    # rounded float32 root (torch's float32 sqrt on the CPU is one ulp off
+    # at some counts: 51, 68, 138 and 145 among the first 150).
+    root = torch.sqrt((1.0 - torch.pow(b2, t)).to(torch.float64)).to(torch.float32)
+    alpha = lr * root / (1.0 - torch.pow(b1, t))
     p_l, g_l = _leaves(params), _leaves(grads)
     m_l, v_l = _leaves(state.mu), _leaves(state.nu)
     torch._foreach_mul_(m_l, b1)

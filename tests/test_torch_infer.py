@@ -123,7 +123,7 @@ def test_port_imports_no_jax():
     banned = ("jax", "jaxlib", "fullycnnspeechenhancement_tpu")
     sources = list(_port_sources())
     assert len(sources) > 15
-    for module in ("streaming.py", "export.py", os.path.join("cli", "stream.py"),
+    for module in ("streaming.py", "export.py", "quality.py", os.path.join("cli", "stream.py"),
                    os.path.join("cli", "export.py"), os.path.join("data", "device_cache.py"),
                    os.path.join("train", "cached_step.py")):
         assert any(p.endswith(os.path.join("fullycnnspeechenhancement_torch", module))
