@@ -42,6 +42,7 @@ from fullycnnspeechenhancement_torch.ops.rced_stack import (
     fused_inference_forward,
     pack_inference_stack,
 )
+from fullycnnspeechenhancement_torch.telemetry import span
 from fullycnnspeechenhancement_torch.train.checkpoint import (
     find_checkpoint,
     import_reference_npz,
@@ -127,14 +128,17 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _denoise(self, wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        mag, pre, pim = self.ext.magnitude_and_phase(wav, lengths)
-        if self._packed is not None:
-            pred = fused_inference_forward(
-                self.model, self.params, self.bn_state, mag, packed=self._packed
-            )
-        else:
-            pred = self.model.apply(self.params, self.bn_state, mag[..., None])[0][..., 0]
-        return self.reb(pred, pre, pim)
+        with span("infer.features"):
+            mag, pre, pim = self.ext.magnitude_and_phase(wav, lengths)
+        with span("infer.model"):
+            if self._packed is not None:
+                pred = fused_inference_forward(
+                    self.model, self.params, self.bn_state, mag, packed=self._packed
+                )
+            else:
+                pred = self.model.apply(self.params, self.bn_state, mag[..., None])[0][..., 0]
+        with span("infer.rebuild"):
+            return self.reb(pred, pre, pim)
 
     @torch.inference_mode()
     def _denoise_time_sharded(self, wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -144,25 +148,33 @@ class InferenceEngine:
         exact, because TF SAME time padding is zeros too."""
         from fullycnnspeechenhancement_torch.parallel.mesh import DATA_AXIS
 
-        mag, pre, pim = self.ext.magnitude_and_phase(wav, lengths)
-        t = mag.shape[1]
-        n_shards = self.mesh.shape[DATA_AXIS]
-        t_pad = -(-t // n_shards) * n_shards
-        if t_pad != t:
-            mag = torch.nn.functional.pad(mag, (0, 0, 0, t_pad - t))
-        pred = self._sharded_model(self.params, self.bn_state, mag)[:, :t]
-        return self.reb(pred, pre, pim)
+        with span("infer.features"):
+            mag, pre, pim = self.ext.magnitude_and_phase(wav, lengths)
+        with span("infer.model"):
+            t = mag.shape[1]
+            n_shards = self.mesh.shape[DATA_AXIS]
+            t_pad = -(-t // n_shards) * n_shards
+            if t_pad != t:
+                mag = torch.nn.functional.pad(mag, (0, 0, 0, t_pad - t))
+            pred = self._sharded_model(self.params, self.bn_state, mag)[:, :t]
+        with span("infer.rebuild"):
+            return self.reb(pred, pre, pim)
 
     def denoise_array(self, signal: np.ndarray) -> np.ndarray:
         """float32 waveform -> denoised float32 waveform (same length)."""
-        n = len(signal)
-        L = self._pad_len(n)
-        wav = torch.zeros(1, L, dtype=torch.float32, device=self.device)
-        wav[0, :n] = torch.as_tensor(np.asarray(signal, np.float32), device=self.device)
-        lengths = torch.tensor([n], dtype=torch.int32, device=self.device)
-        if self._sharded_model is not None and L > self.bucket_samples[-1]:
-            return self._denoise_time_sharded(wav, lengths)[0, :n].cpu().numpy()
-        return self._denoise(wav, lengths)[0, :n].cpu().numpy()
+        with span("infer.request"):
+            n = len(signal)
+            L = self._pad_len(n)
+            with span("infer.upload"):
+                wav = torch.zeros(1, L, dtype=torch.float32, device=self.device)
+                wav[0, :n] = torch.as_tensor(np.asarray(signal, np.float32), device=self.device)
+                lengths = torch.tensor([n], dtype=torch.int32, device=self.device)
+            if self._sharded_model is not None and L > self.bucket_samples[-1]:
+                out = self._denoise_time_sharded(wav, lengths)
+            else:
+                out = self._denoise(wav, lengths)
+            with span("infer.download"):
+                return out[0, :n].cpu().numpy()
 
     def denoise(self, audio_file: str, save_path: Optional[str] = None) -> str:
         signal, _ = read_wav(audio_file, self.config.dsp.sample_rate)

@@ -22,6 +22,7 @@ import torch
 
 from fullycnnspeechenhancement_torch.data.device_cache import CachedBatch, materialize_batch
 from fullycnnspeechenhancement_torch.device import host_to_device, resolve_device
+from fullycnnspeechenhancement_torch.telemetry import span
 from fullycnnspeechenhancement_torch.train.step import Batch, make_multi_step
 
 
@@ -75,7 +76,9 @@ def make_cached_train_step(step, bucket_samples: int, premixed: bool):
     materialize = _materializer(bucket_samples, premixed)
 
     def cached_step(state, clean_flat, other_flat, meta: Meta):
-        return step(state, materialize(clean_flat, other_flat, meta))
+        with span("train.materialize"):
+            batch = materialize(clean_flat, other_flat, meta)
+        return step(state, batch)
 
     return cached_step
 

@@ -37,6 +37,7 @@ from fullycnnspeechenhancement_torch.config import Config
 from fullycnnspeechenhancement_torch.dsp.features import SpectrogramExtractor
 from fullycnnspeechenhancement_torch.device import resolve_device
 from fullycnnspeechenhancement_torch.models.rced import ModelDef
+from fullycnnspeechenhancement_torch.telemetry import span
 from fullycnnspeechenhancement_torch.train.optim import (
     TFAdamState,
     noam_schedule,
@@ -183,36 +184,40 @@ def make_train_step(config: Config, model: ModelDef, dp=None):
     reduce_max = None if dp is None else dp.max
 
     def train_step(state: TrainState, batch: Batch):
-        with torch.no_grad():
-            mix_mag = ext(_as_wav(batch.mix_wav, batch.wav_scale), batch.lengths)
-            clean_mag = ext(_as_wav(batch.clean_wav, batch.wav_scale), batch.lengths)
-            T = mix_mag.shape[1]
-            if mask_loss:
-                mask = ext.frame_mask(batch.lengths, T)
-            else:
-                mask = ext.batch_max_frame_mask(batch.lengths, T, reduce_max)
-        x = mix_mag[..., None].to(compute_dtype)
-        with torch.enable_grad():
-            pred, new_bn = forward(
-                state.params, state.bn_state, x, is_training=True, frame_mask=mask,
-                reduce=reduce,
-            )
-            loss = spectral_l2_loss(
-                pred.to(torch.float32), clean_mag[..., None], batch_size, mask,
-                normalize_mask=mask_loss, reduce=reduce,
-            )
+        with span("train.step"):
+            with span("train.features"), torch.no_grad():
+                mix_mag = ext(_as_wav(batch.mix_wav, batch.wav_scale), batch.lengths)
+                clean_mag = ext(_as_wav(batch.clean_wav, batch.wav_scale), batch.lengths)
+                T = mix_mag.shape[1]
+                if mask_loss:
+                    mask = ext.frame_mask(batch.lengths, T)
+                else:
+                    mask = ext.batch_max_frame_mask(batch.lengths, T, reduce_max)
+            with span("train.forward"), torch.enable_grad():
+                x = mix_mag[..., None].to(compute_dtype)
+                pred, new_bn = forward(
+                    state.params, state.bn_state, x, is_training=True, frame_mask=mask,
+                    reduce=reduce,
+                )
+                loss = spectral_l2_loss(
+                    pred.to(torch.float32), clean_mag[..., None], batch_size, mask,
+                    normalize_mask=mask_loss, reduce=reduce,
+                )
             names = [(n, k) for n in sorted(state.params) for k in sorted(state.params[n])]
             leaves = [state.params[n][k] for n, k in names]
-            flat = torch.autograd.grad(loss, leaves)
-        if dp is not None:
-            *flat, loss = dp.sum_flat(list(flat) + [loss])
-        grads = {}
-        for (n, k), g in zip(names, flat):
-            grads.setdefault(n, {})[k] = g
-        lr = schedule(state.step)
-        opt_state = tf_adam_update(state.params, grads, state.opt_state, schedule)
-        new_state = TrainState(state.params, new_bn, opt_state, state.step + 1)
-        return new_state, {"loss": loss.detach(), "lr": lr, "step": state.step}
+            with span("train.backward"):
+                with torch.enable_grad():
+                    flat = torch.autograd.grad(loss, leaves)
+                if dp is not None:
+                    *flat, loss = dp.sum_flat(list(flat) + [loss])
+            grads = {}
+            for (n, k), g in zip(names, flat):
+                grads.setdefault(n, {})[k] = g
+            with span("train.optimizer"):
+                lr = schedule(state.step)
+                opt_state = tf_adam_update(state.params, grads, state.opt_state, schedule)
+            new_state = TrainState(state.params, new_bn, opt_state, state.step + 1)
+            return new_state, {"loss": loss.detach(), "lr": lr, "step": state.step}
 
     return train_step
 

@@ -38,6 +38,7 @@ LOCAL_RANK.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -67,6 +68,7 @@ from fullycnnspeechenhancement_torch.parallel.dp import (
     shard_batch,
     shard_stacked_batch,
 )
+from fullycnnspeechenhancement_torch.telemetry import span
 from fullycnnspeechenhancement_torch.train.checkpoint import (
     CheckpointManager,
     find_checkpoint,
@@ -200,11 +202,12 @@ class Trainer:
         return self._to_device(batch if self.dp is None else shard_stacked_batch(self.dp, batch))
 
     def _dispatch(self, payload: Batch, k: int, epoch: int) -> None:
-        if k == 1:
-            self.state, metrics = self._step(self.state, payload)
-            packed = pack_step_metrics(metrics)[None]
-        else:
-            self.state, packed = self._multi_step(self.state, payload)
+        with span("train.dispatch"):
+            if k == 1:
+                self.state, metrics = self._step(self.state, payload)
+                packed = pack_step_metrics(metrics)[None]
+            else:
+                self.state, packed = self._multi_step(self.state, payload)
         self._note_steps(packed, k, epoch)
 
     # -- the device cache (data/device_cache.py) ---------------------------
@@ -245,9 +248,10 @@ class Trainer:
 
     def _dispatch_cached(self, payload, k: int, epoch: int) -> None:
         bucket_frames, meta, (clean_flat, other_flat) = payload
-        self.state, out = self._cached_fn(bucket_frames, k)(self.state, clean_flat, other_flat, meta)
-        if k == 1:
-            out = pack_step_metrics(out)[None]
+        with span("train.dispatch"):
+            self.state, out = self._cached_fn(bucket_frames, k)(self.state, clean_flat, other_flat, meta)
+            if k == 1:
+                out = pack_step_metrics(out)[None]
         self._note_steps(out, k, epoch)
 
     def _feed(self, train_loader, K: int, cached: bool = False):
@@ -332,6 +336,19 @@ class Trainer:
                 except queue.Empty:
                     t.join(timeout=0.1)
 
+    def _waited(self, feed):
+        """`feed`'s items, the dispatch thread's wait for each timed into
+        `data_time` and spanned as `train.feed_wait`."""
+        with contextlib.closing(feed):
+            while True:
+                with span("train.feed_wait"):
+                    t_data = time.perf_counter()
+                    item = next(feed, None)
+                if item is None:
+                    return
+                self.data_time.update(time.perf_counter() - t_data)
+                yield item
+
     def _note_steps(self, packed: torch.Tensor, n: int, epoch: int) -> None:
         """Record n dispatched steps' packed [n, 2] device metrics; the
         values come to the host later in one copy (`_flush_metrics`)."""
@@ -346,28 +363,29 @@ class Trainer:
         loop's only wait for the device."""
         if not self._pending:
             return
-        vals = torch.cat([p for p, _ in self._pending]).cpu().numpy()
-        rows = [r for _, rs in self._pending for r in rs]
-        wall = time.perf_counter() - self._flush_t0
-        # Wall time per step across the flush window, data wait included.
-        self.step_time.update(wall / max(len(rows), 1))
-        for row, v in zip(rows, vals):
-            row["loss"] = float(v[0])
-            row["lr"] = float(v[1])
-            self.train_loss.update(row["loss"])
-        self._pending = []
-        self._steps_since_flush = 0
-        self._flush_t0 = time.perf_counter()
-        if not self.is_main:
-            return
-        with open(self._scalars_path, "a") as f:
-            for row in rows:
-                f.write(json.dumps(row) + "\n")
-        log.info(
-            "epoch %d batch %d/%d loss %.4f(%.4f) data %.3fs(%.3fs) step-wall %.3fs(%.3fs)",
-            epoch, batch_i, n_batches, self.train_loss.val, self.train_loss.avg,
-            self.data_time.val, self.data_time.avg, self.step_time.val, self.step_time.avg,
-        )
+        with span("train.flush"):
+            vals = torch.cat([p for p, _ in self._pending]).cpu().numpy()
+            rows = [r for _, rs in self._pending for r in rs]
+            wall = time.perf_counter() - self._flush_t0
+            # Wall time per step across the flush window, data wait included.
+            self.step_time.update(wall / max(len(rows), 1))
+            for row, v in zip(rows, vals):
+                row["loss"] = float(v[0])
+                row["lr"] = float(v[1])
+                self.train_loss.update(row["loss"])
+            self._pending = []
+            self._steps_since_flush = 0
+            self._flush_t0 = time.perf_counter()
+            if not self.is_main:
+                return
+            with open(self._scalars_path, "a") as f:
+                for row in rows:
+                    f.write(json.dumps(row) + "\n")
+            log.info(
+                "epoch %d batch %d/%d loss %.4f(%.4f) data %.3fs(%.3fs) step-wall %.3fs(%.3fs)",
+                epoch, batch_i, n_batches, self.train_loss.val, self.train_loss.avg,
+                self.data_time.val, self.data_time.avg, self.step_time.val, self.step_time.avg,
+            )
 
     def train(
         self,
@@ -407,16 +425,13 @@ class Trainer:
             self._pending = []
             self._steps_since_flush = 0
             self._flush_t0 = time.perf_counter()
-            t_data = time.perf_counter()
             steps_done = 0
-            for payload, k, audio_s in self._feed(train_loader, K, cached):
-                self.data_time.update(time.perf_counter() - t_data)
+            for payload, k, audio_s in self._waited(self._feed(train_loader, K, cached)):
                 epoch_audio_s += audio_s
                 dispatch(payload, k, epoch)
                 steps_done += k
                 if self._steps_since_flush >= flush_every:
                     self._flush_metrics(log, epoch, steps_done, n_batches)
-                t_data = time.perf_counter()
             self._flush_metrics(log, epoch, n_batches, n_batches)
             wall = time.perf_counter() - epoch_t0
             if self.is_main:
