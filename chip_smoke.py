@@ -9,8 +9,8 @@ for an H100) and `nvcc`.  It imports only the port
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels for sm_90a, one `nvcc` per source, started
-     together (`ops/csrc/rced_stack.cu`, `ops/csrc/blocked_dw.cu`,
-     `ops/csrc/freq_conv.cu`), and prints their ptxas lines and build
+     together (`ops/csrc/rced_stack.cu`, `ops/csrc/rced_edges.cu`,
+     `ops/csrc/blocked_dw.cu`, `ops/csrc/freq_conv.cu`), and prints their ptxas lines and build
      times; beside them the native host runtime (g++, `runtime/*.cc`:
      decode, resample, mixing, PESQ) and a probe of mma.sync's TF32 and
      bf16 rates and of wgmma's bf16 rate (MMA_RATE_SRC), measured once here
@@ -27,7 +27,8 @@ for an H100) and `nvcc`.  It imports only the port
      layer, TF32 off);
   4. serves three requests (1.5 s, 6 s, 30 s: the 2, 8 and 32 s buckets)
      and one wav file through the fused engine, with the kernel's launch
-     count set to 0 just before and read just after: it must be 4;
+     count and the two edge kernels' set to 0 just before and read just
+     after: each must be 4;
   5. holds each output against the unfused engine's at
      atol = 1e-4 * max|reference|;
   6. holds the kernel against its plain torch version on the card for
@@ -54,6 +55,16 @@ for an H100) and `nvcc`.  It imports only the port
      stack in bf16, the bf16 bound, its padded products and the floor
      wgmma's rate sets, conv_layer_bf16's mma.sync floor, and both launch
      plans;
+ 7c. the fused forward's edge kernels (`ops/csrc/rced_edges.cu`: layer 1
+     and the (1, 129) projection, float32 on the CUDA cores) at B=1,
+     T=25,999 (a 416 s call), T=124 (2 s) and 64 x 8 s: each against its
+     plain version (`conv2d_same`, and the ReLU, through cuDNN with TF32
+     off) at atol 1e-5 * max|plain|, each launch repeated bit for bit;
+     each one's device time a call (torch.profiler) and back-to-back call
+     time (CUDA events) beside `conv2d_same` through cuDNN (`library_ms`),
+     the plain version and the float32 SIMT floor of the products that
+     meet a real input (67 TFLOP/s) and its bytes (3.35 TB/s); their
+     launch plans;
 
   The training path (the blocked dW kernel, `blocked_dw`):
   8. writes a corpus (512 speech-like utterances of 6.5-8.0 s, all in the
@@ -258,11 +269,12 @@ for an H100) and `nvcc`.  It imports only the port
      than 0.06 over the mix's), the runs from the port's own init record
      theirs; each run's JSON line is printed beside the TPU v5e's table
      from benchmarks/PERF_NOTES.md, marked as a TPU's reference;
- 22. prints a `kernels` JSON line (six entries: `rced_stack` and
-     `blocked_dw` in float32 and in bf16, each with its "dtype", the bf16
-     `rced_stack` the wgmma kernel with conv_layer_bf16's time as
-     `mma_sync_ms`, then
-     `freq_conv` and `freq_conv_stack`; the float32 `rced_stack`'s
+ 22. prints a `kernels` JSON line (eight entries: `rced_stack` in float32
+     and in bf16, each with its "dtype", the bf16 `rced_stack` the wgmma
+     kernel with conv_layer_bf16's time as `mma_sync_ms`, the edge kernels
+     `rced_first` and `rced_proj` (phase 7c; launches phase 4's), then
+     `blocked_dw` in float32 and in bf16, `freq_conv` and
+     `freq_conv_stack`; the float32 `rced_stack`'s
      launches are the serving path's and the evaluation path's, each also
      by path, and its max_abs_err covers phases 6, 7 and 15; the bf16
      `blocked_dw`'s launches are the host loader's (11a) and both device
@@ -544,7 +556,7 @@ def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float, rate_wgmma: fl
     from fullycnnspeechenhancement_torch.infer import InferenceEngine
     from fullycnnspeechenhancement_torch.models import get_model
     from fullycnnspeechenhancement_torch.models.blocks import conv2d_same
-    from fullycnnspeechenhancement_torch.ops import rced_stack
+    from fullycnnspeechenhancement_torch.ops import rced_edges, rced_stack
     from fullycnnspeechenhancement_torch.train.checkpoint import export_params_npz
 
     # -- 3. engines ----------------------------------------------------
@@ -567,6 +579,7 @@ def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float, rate_wgmma: fl
     wav_in = os.path.join(tmp, "noisy.wav")
     write_wav(wav_in, speech_like(rng, 3.0), 8000)
     rced_stack.launches = 0
+    rced_edges.launches_first = rced_edges.launches_proj = 0
     outs = []
     for sig in requests:
         t0 = time.perf_counter()
@@ -574,9 +587,11 @@ def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float, rate_wgmma: fl
         log(f"request {len(sig) / 8000:.1f} s: {1e3 * (time.perf_counter() - t0):.1f} ms (first call)")
     out_path = fused.denoise(wav_in, save_path=os.path.join(tmp, "fused"))
     launches = rced_stack.launches
-    log(f"main path: rced_stack launches {launches}")
-    if launches != 4:
-        raise AssertionError(f"rced_stack launched {launches} times on the main path, expected 4")
+    edge_launches = (rced_edges.launches_first, rced_edges.launches_proj)
+    log(f"main path: rced_stack launches {launches}, rced_first {edge_launches[0]}, rced_proj {edge_launches[1]}")
+    if launches != 4 or edge_launches != (4, 4):
+        raise AssertionError(f"rced_stack and the edge kernels launched {launches} and {edge_launches} times on "
+                             "the main path, expected 4 each")
 
     # -- 5. outputs against the unfused engine ---------------------------
     for sig, got in zip(requests, outs):
@@ -669,13 +684,15 @@ def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float, rate_wgmma: fl
     lengths = torch.tensor([n], dtype=torch.int32, device=dev)
     with torch.inference_mode():
         mag1, pre, pim = fused.ext.magnitude_and_phase(wav, lengths)
-        y1r = torch.relu(conv2d_same(mag1[:, None], *pk.first[1:])).contiguous()
+        y1r = rced_edges.first_forward(pk.edges, mag1)
         zr = rced_stack.stack_forward(pk, y1r)
-        pred = conv2d_same(zr, *pk.last[1:])[:, 0]
+        pred = rced_edges.proj_forward(pk.edges, zr)
         stages = {
             "analysis": cuda_ms(lambda: fused.ext.magnitude_and_phase(wav, lengths), 20),
+            "layer1_kernel": cuda_ms(lambda: rced_edges.first_forward(pk.edges, mag1), 20),
             "layer1_cudnn": cuda_ms(lambda: conv2d_same(mag1[:, None], *pk.first[1:]), 20),
             "inner_kernel": cuda_ms(lambda: rced_stack.stack_forward(pk, y1r), 20),
+            "last_kernel": cuda_ms(lambda: rced_edges.proj_forward(pk.edges, zr), 20),
             "last_cudnn": cuda_ms(lambda: conv2d_same(zr, *pk.last[1:]), 20),
             "rebuild": cuda_ms(lambda: fused.reb(pred, pre, pim), 20),
             "inner_cudnn_layerwise": cuda_ms(lambda: inner_stack_cudnn(folded, y1r), 20),
@@ -728,7 +745,85 @@ def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float, rate_wgmma: fl
     t0 = time.perf_counter()
     entry_bf16 = run_stack_bf16(dev, fused, requests, rate_bf16, rate_wgmma, pk)
     phase("stack bf16 mode", t0)
-    return entry, entry_bf16
+    t0 = time.perf_counter()
+    edge_entries = run_edges(dev, fused, edge_launches)
+    phase("edge kernels", t0)
+    return entry, entry_bf16, edge_entries
+
+
+def run_edges(dev, fused, launches) -> list:
+    """Phase 7c: the fused forward's edge kernels on the fused engine's
+    V2 pack, at a 416 s call, a 2 s request and 64 x 8 s; `launches` are
+    phase 4's counts.  Returns their two entries of the `kernels` line."""
+    from fullycnnspeechenhancement_torch.models.blocks import conv2d_same
+    from fullycnnspeechenhancement_torch.ops import rced_edges
+
+    e = fused._packed.edges
+    g = torch.Generator().manual_seed(11)
+    shapes = [(1, 25999), (1, fused.ext.num_frames(2 * 8000)), (64, fused.ext.num_frames(8 * 8000))]
+    rows = {"rced_first": [], "rced_proj": []}
+    for B, T in shapes:
+        mag = (10 * torch.rand(B, T, 129, generator=g)).to(dev)
+        z = (torch.rand(B, e.proj_channels, T, 129, generator=g) - 0.5).to(dev)
+        macs = [B * m for m in rced_edges.edge_macs(e, T)]
+        cases = (
+            ("rced_first", lambda: rced_edges.first_forward(e, mag), lambda: rced_edges.first_plain(e, mag),
+             lambda: conv2d_same(mag[:, None], e.w1, e.b1), macs[0], 4 * B * T * 129 * (1 + e.channels),
+             rced_edges.first_plan(B, T)._asdict()),
+            ("rced_proj", lambda: rced_edges.proj_forward(e, z), lambda: rced_edges.proj_plain(e, z),
+             lambda: conv2d_same(z, e.w_last, e.b_last), macs[1], 4 * B * T * 129 * (e.proj_channels + 1),
+             rced_edges.proj_plan(B, T)._asdict()),
+        )
+        for name, kern, plain, library, mac, nbytes, plan in cases:
+            got, again, ref = kern(), kern(), plain()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} B={B} T={T}: two launches differ")
+            err = check_close(f"{name} B={B} T={T}", got, ref, 0.0, 1e-5 * ref.abs().max().item())
+            reps = 20 if B * T > 4000 else 200
+            row = {
+                "B": B, "T": T, "max_abs_err": err, "max_abs_plain": ref.abs().max().item(),
+                "ms": cuda_ms(kern, reps),
+                "device_ms": device_busy_ms(kern, reps)[1],
+                "library_ms": cuda_ms(library, reps),
+                "library_device_ms": device_busy_ms(library, reps)[1],
+                "plain_ms": cuda_ms(plain, reps),
+                "fp32_simt_floor_ms": 2 * mac / PEAK_FP32_FLOPS * 1e3,
+                "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                "macs": mac, "bytes": nbytes, "plan": plan,
+            }
+            bound = max(row["fp32_simt_floor_ms"], row["bytes_ms"])
+            dev_ms = row["device_ms"] if row["device_ms"] is not None else row["ms"]
+            log(f"{name} V2 B={B} T={T}: device {dev_ms * 1e3:.2f} us ({row['ms'] * 1e3:.2f} us a call back to "
+                f"back), cuDNN conv2d_same {row['library_ms'] * 1e3:.2f} us (device "
+                f"{(row['library_device_ms'] or float('nan')) * 1e3:.2f}), plain {row['plain_ms'] * 1e3:.2f} us; "
+                f"float32 SIMT floor {row['fp32_simt_floor_ms'] * 1e3:.2f} us ({mac:.4e} multiply-adds), bytes "
+                f"{row['bytes_ms'] * 1e3:.2f} us: {100 * bound / dev_ms:.1f}% of the floor; max abs err "
+                f"{err:.3e} of max|plain| {row['max_abs_plain']:.3e}; plan {plan}")
+            rows[name].append(row)
+    entries = []
+    for name, launched in zip(rows, launches):
+        long = rows[name][0]
+        bound = max(long["fp32_simt_floor_ms"], long["bytes_ms"])
+        entries.append({
+            "name": name,
+            "dtype": "float32",
+            "route": "cuda",
+            "source": "fullycnnspeechenhancement_torch/ops/csrc/rced_edges.cu",
+            "replaces": None,
+            "replaces_note": "no TPU kernel: the JAX package leaves layer 1 and the projection to XLA convs",
+            "launches": launched,
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "ms": long["device_ms"] if long["device_ms"] is not None else long["ms"],
+            "plain_ms": long["plain_ms"],
+            "bound_ms": bound,
+            "bound_by": "operations" if long["fp32_simt_floor_ms"] >= long["bytes_ms"] else "bytes",
+            "bound_note": "float32 on the CUDA cores at the data sheet's 67 TFLOP/s",
+            "library_ms": long["library_ms"],
+            "library": "conv2d_same (F.pad and F.conv2d, cuDNN, TF32 off)",
+            "at": "V2, B = 1, T = 25,999 (a 416 s call); launches on the serving path",
+            "by_shape": rows[name],
+        })
+    return entries
 
 
 def against_mma_sync(name, pk, x, got) -> float:
@@ -3285,9 +3380,9 @@ def build_kernels() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
     from fullycnnspeechenhancement_torch.data import native
-    from fullycnnspeechenhancement_torch.ops import blocked_dw, build, freq_conv, rced_stack
+    from fullycnnspeechenhancement_torch.ops import blocked_dw, build, freq_conv, rced_edges, rced_stack
 
-    names = ("rced_stack", "blocked_dw", "freq_conv")
+    names = ("rced_stack", "rced_edges", "blocked_dw", "freq_conv")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -3309,6 +3404,7 @@ def build_kernels() -> str:
         raise RuntimeError("the native runtime built but does not load")
     log(f"build: native runtime (g++, fcse_runtime.cc + pesq862.cc) in {runtime_s:.1f} s")
     rced_stack.load_library()
+    rced_edges.load_library()
     blocked_dw.load_library()
     freq_conv.load_library()
     for name in names:
@@ -3354,7 +3450,7 @@ def main() -> int:
     phase("build", t0)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        stack_entry, stack_bf16_entry = run_serving(dev, tmp, mma_rate, rate_bf16, rate_wgmma)
+        stack_entry, stack_bf16_entry, edge_entries = run_serving(dev, tmp, mma_rate, rate_bf16, rate_wgmma)
         phase("serving", t0)
         dw_entry, last_checkpoint, train_ctx = run_training(dev, tmp, mma_rate)
         dw_bf16_entry = run_training_bf16(dev, tmp, train_ctx, rate_bf16, rate_wgmma)
@@ -3458,7 +3554,7 @@ def main() -> int:
         },
         "at": f"roll2's shape, depth {max(chain)}; launches on the probe path",
     }
-    entries = [stack_entry, stack_bf16_entry, dw_entry, dw_bf16_entry, conv_entry, chain_entry]
+    entries = [stack_entry, stack_bf16_entry, *edge_entries, dw_entry, dw_bf16_entry, conv_entry, chain_entry]
     for e in entries:
         e["kernel_ms"] = e["ms"]
     kernels = {"kernels": entries}

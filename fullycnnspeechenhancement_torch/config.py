@@ -93,7 +93,9 @@ class ModelConfig:
     # Serve inference through the fused inner-stack kernel
     # (ops/rced_stack.py, CUDA source ops/csrc/rced_stack.cu): one
     # device-memory read and one write for the inner conv layers instead
-    # of a round trip per layer.  Float32 operands and accumulation.
+    # of a round trip per layer, with layer 1 and the projection in the
+    # kernels of ops/csrc/rced_edges.cu.  Float32 operands and
+    # accumulation.
     fused_inference: bool = False
     # Run the train step's conv stack through the freq-to-depth "blocked"
     # forward (models/blocked.py): an exact reparametrization that folds

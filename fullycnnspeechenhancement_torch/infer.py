@@ -9,8 +9,9 @@ that the shapes a card sees stay few.
 
 Weights come from an npz bridge file, or from a checkpoint of this
 package (an `epoch_<N>.pt` file, or a run directory: its latest epoch).
-`config.model.fused_inference` selects the fused inner-stack kernel
-(`ops/rced_stack.py`) over the layer-by-layer cuDNN path.  With `mesh`
+`config.model.fused_inference` selects the fused forward (the inner-stack
+kernel of `ops/rced_stack.py` between the edge kernels of
+`ops/rced_edges.py`) over the layer-by-layer cuDNN path.  With `mesh`
 (`parallel.mesh.make_mesh`), an utterance longer than the top bucket
 runs its model through the time-sharded halo forward
 (`parallel/halo.py`) over the mesh's devices instead, as the JAX

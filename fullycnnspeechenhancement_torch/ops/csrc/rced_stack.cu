@@ -6,7 +6,8 @@
 // with batch norm folded into the weights.  Each of them is a (1, kw <= 13)
 // frequency-only conv, then the bias, the pre-ReLU skip (V1/V2), the ReLU
 // and the post-ReLU residual (V3).  Layer 1 (the only conv with a time
-// extent) and the final (1, 129) projection run outside, as cuDNN convs.
+// extent) and the final (1, 129) projection run outside, in the two
+// kernels of rced_edges.cu.
 //
 // Per frame and layer the conv is a GEMM:
 //

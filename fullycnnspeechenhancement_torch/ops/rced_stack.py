@@ -13,7 +13,9 @@ FIRST conv looks across time; every later layer but the last is a per-frame
     gamma*(conv+b-mean)/sqrt(var+eps)+beta == conv_with(w*s) +
     (b-mean)*s + beta with s = gamma/sqrt(var+eps); the skip-add comes
     after BN and before the ReLU, so folding keeps the reference order;
-  * layer 1 runs as a cuDNN conv on the folded weights, then its ReLU;
+  * layer 1 (the only conv with a time extent) runs on the folded weights
+    with its ReLU in `rced_edges.first_forward`, a CUDA kernel of its own
+    (`csrc/rced_edges.cu`) that writes the stack's input layout;
   * the inner layers run in one kernel launch that keeps every live tap of
     a frame in shared memory (`stack_forward`); taps that name layer 1
     read the kernel's input.  The kernel runs each layer as a GEMM on the
@@ -21,18 +23,20 @@ FIRST conv looks across time; every later layer but the last is a per-frame
     channel), splits the weights into TF32 big and small parts and stores
     them in `mma.sync` fragment order, and gives the kernel each k's
     shared-memory offset (`tap_offsets`);
-  * the final (1, 129) projection runs as a cuDNN conv.
+  * the final (1, 129) projection runs in `rced_edges.proj_forward`, the
+    second kernel of that source, which writes the [B, T, 129] result.
 
 `dtype="bfloat16"` is the JAX kernel's bf16 operand mode: each layer's
 input is rounded to bf16 where it meets the folded bf16 weights; the
 products are exact and summed in float32, and the slabs, biases, skips and
-residuals stay float32.  Layer 1 and the last projection stay float32
-convs, as in JAX.  Its kernel is `rced_stack_wgmma_kernel` (`pack_wgmma`:
-each layer's chunk of B tiles, biases and A descriptor table, and the
-block's shared-memory map) wherever `wgmma_layout` takes the shapes, as it
-takes every V1/V2/V3 pack (`takes_wgmma`); other bf16 packs run the
-earlier `mma.sync` body, `conv_layer_bf16` (`pack_fragments_bf16`), which
-`stack_forward_mma_sync` also reaches by name.
+residuals stay float32.  Layer 1 and the last projection stay float32,
+as in JAX, through the same edge kernels.  Its kernel is
+`rced_stack_wgmma_kernel` (`pack_wgmma`: each layer's chunk of B tiles,
+biases and A descriptor table, and the block's shared-memory map) wherever
+`wgmma_layout` takes the shapes, as it takes every V1/V2/V3 pack
+(`takes_wgmma`); other bf16 packs run the earlier `mma.sync` body,
+`conv_layer_bf16` (`pack_fragments_bf16`), which `stack_forward_mma_sync`
+also reaches by name.
 
 `stack_forward` is the kernels' wrapper: on a CPU tensor it runs
 `stack_forward_plain`, the same arithmetic in plain torch; on a CUDA tensor
@@ -52,9 +56,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fullycnnspeechenhancement_torch.models.blocks import BN_EPSILON, conv2d_same
+from fullycnnspeechenhancement_torch.models.blocks import BN_EPSILON
 from fullycnnspeechenhancement_torch.models.rced import ConvSpec, ModelDef
-from fullycnnspeechenhancement_torch.ops import build
+from fullycnnspeechenhancement_torch.ops import build, rced_edges
 
 F_DIM = 129
 HALO = 6  # zero bins on each side of a row's 129: covers kw <= 13
@@ -189,6 +193,8 @@ class PackedStack:
     dtype: str = "float32"  # the operand mode, one of DTYPES
     # the bf16 wgmma kernel's pack, where `wgmma_layout` takes the shapes
     wg: Optional["WgmmaStack"] = None
+    # layer 1 and the projection for their kernels (`rced_edges.pack_edges`)
+    edges: Optional[rced_edges.EdgePack] = None
 
     @property
     def c_in(self) -> int:
@@ -514,7 +520,8 @@ def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float3
 
     Inner layers must be (1, kw <= 13) convs over 129 bins with at most 32
     output channels; at most 16 of them, whose live taps fit one block's
-    shared memory."""
+    shared memory.  Layer 1 and the projection must be edges the edge
+    kernels take (`rced_edges.pack_edges`)."""
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r}: the stack kernel takes one of {DTYPES}")
     k_chunk = K_CHUNK if dtype == "float32" else K_CHUNK_BF16
@@ -587,6 +594,7 @@ def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float3
     )
     device = first[1].device
     wg = pack_wgmma(layers, plain, first[0].out_ch) if dtype == "bfloat16" else None
+    edges = rced_edges.pack_edges(first, last)
     return PackedStack(
         first=first,
         last=last,
@@ -600,6 +608,7 @@ def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float3
         smem_rows=used,
         dtype=dtype,
         wg=wg,
+        edges=edges,
     )
 
 
@@ -887,25 +896,19 @@ def fused_inference_forward(
 ) -> torch.Tensor:
     """[B, T, F] magnitude -> [B, T, F] enhanced magnitude, inference mode.
 
-    Equivalent to `model.apply(...)` in eval mode with BN folded.  `dtype`
-    is the inner stack's operand mode, as in JAX: "bfloat16" runs its
-    products on bf16 weights and operands with float32 sums; layer 1 and
-    the last projection stay float32.  Pass `packed` (from
-    `pack_inference_stack`, in the same mode) to skip folding and packing
-    on every call, as the inference engine does."""
+    Equivalent to `model.apply(...)` in eval mode with BN folded: layer 1
+    (`rced_edges.first_forward`), the inner stack (`stack_forward`) and the
+    projection (`rced_edges.proj_forward`), on the card one launch of each
+    kernel.  `dtype` is the inner stack's operand mode, as in JAX:
+    "bfloat16" runs its products on bf16 weights and operands with float32
+    sums; layer 1 and the last projection stay float32 in both modes.  Pass
+    `packed` (from `pack_inference_stack`, in the same mode) to skip folding
+    and packing on every call, as the inference engine does."""
     if mag.shape[-1] != F_DIM:
         raise ValueError(f"the stack kernel is specialised for F={F_DIM}")
     if packed is None:
         packed = pack_inference_stack(model, params, bn_state, dtype)
     elif packed.dtype != dtype:
         raise ValueError(f"packed for {packed.dtype}, called with dtype={dtype}")
-    first_spec, w1, b1 = packed.first
-    y1 = conv2d_same(mag[:, None], w1, b1)
-    if first_spec.use_act:
-        y1 = torch.relu(y1)
-    z = stack_forward(packed, y1.contiguous())
-    last_spec, w_last, b_last = packed.last
-    out = conv2d_same(z, w_last, b_last)
-    if last_spec.use_act:
-        out = torch.relu(out)
-    return out[:, 0]
+    z = stack_forward(packed, rced_edges.first_forward(packed.edges, mag.contiguous()))
+    return rced_edges.proj_forward(packed.edges, z)

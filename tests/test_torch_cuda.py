@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from fullycnnspeechenhancement_torch.models import get_model
-from fullycnnspeechenhancement_torch.ops import blocked_dw, freq_conv, rced_stack
+from fullycnnspeechenhancement_torch.ops import blocked_dw, freq_conv, rced_edges, rced_stack
 from fullycnnspeechenhancement_torch.probes import all_probes
 from fullycnnspeechenhancement_torch.train.checkpoint import params_from_numpy
 
@@ -125,6 +125,88 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous float32"):
         rced_stack.stack_forward(packed, x)
     assert rced_stack.launches == before
+
+
+# (name, B, T) of the edge kernels: a frame, a ragged few, a 2 s request,
+# a 32 s one, at B = 1 and 4, and a 416 s call (25,999 frames)
+EDGE_SHAPES = [(n, B, T) for n in NAMES for B in (1, 4) for T in (1, 7, 124, 2001)] + [
+    (n, 1, 25999) for n in NAMES]
+
+
+def _edge_inputs(e, B, T, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    mag = (10 * torch.rand(B, T, 129, generator=g)).to(device)
+    z = (torch.rand(B, e.proj_channels, T, 129, generator=g) - 0.5).to(device)
+    return mag, z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,T", EDGE_SHAPES)
+def test_edge_kernels_match_plain_on_cuda(cuda_device, name, B, T):
+    """Layer 1 and the projection against their plain versions (cuDNN with
+    TF32 off) within 1e-5 * max|plain|: the same float32 products, summed
+    in another order."""
+    e = _packed(name, 1, cuda_device).edges
+    mag, z = _edge_inputs(e, B, T, cuda_device, seed=T)
+    before = (rced_edges.launches_first, rced_edges.launches_proj)
+    y1, out = rced_edges.first_forward(e, mag), rced_edges.proj_forward(e, z)
+    torch.cuda.synchronize()
+    assert (rced_edges.launches_first, rced_edges.launches_proj) == (before[0] + 1, before[1] + 1)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref1, ref = rced_edges.first_plain(e, mag), rced_edges.proj_plain(e, z)
+    assert_live(ref1)
+    assert y1.shape == ref1.shape and out.shape == ref.shape == (B, T, 129)
+    for got, want in ((y1, ref1), (out, ref)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_edge_kernels_repeat_bit_for_bit_on_cuda(cuda_device, name):
+    """No atomics and a fixed order of products: two launches agree."""
+    e = _packed(name, 2, cuda_device).edges
+    mag, z = _edge_inputs(e, 3, 97, cuda_device, seed=9)
+    assert torch.equal(rced_edges.first_forward(e, mag), rced_edges.first_forward(e, mag))
+    assert torch.equal(rced_edges.proj_forward(e, z), rced_edges.proj_forward(e, z))
+
+
+@pytest.mark.cuda
+def test_edge_wrappers_raise_instead_of_falling_back(cuda_device):
+    e = _packed("FullyCNNV2", 0, cuda_device).edges
+    before = (rced_edges.launches_first, rced_edges.launches_proj)
+    with pytest.raises(ValueError, match="contiguous"):
+        rced_edges.first_forward(e, torch.rand(1, 129, 5, device=cuda_device).transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        rced_edges.proj_forward(e, torch.rand(1, 10, 5, 129, device=cuda_device, dtype=torch.float64))
+    with pytest.raises(ValueError, match="edge weights on cpu"):
+        rced_edges.proj_forward(_packed("FullyCNNV2", 0, "cpu").edges, torch.rand(1, 10, 5, 129, device=cuda_device))
+    assert (rced_edges.launches_first, rced_edges.launches_proj) == before
+
+
+@pytest.mark.cuda
+def test_engine_request_runs_the_three_kernels_and_no_cudnn_conv(cuda_device):
+    """One fused request launches each edge kernel and the stack kernel
+    once, and its device trace holds no cuDNN convolution."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fullycnnspeechenhancement_torch import Config, ModelConfig
+    from fullycnnspeechenhancement_torch.infer import InferenceEngine
+
+    engine = InferenceEngine(Config(model=ModelConfig(net_work="FullyCNNV2", fused_inference=True)), device="cuda")
+    sig = (0.1 * np.random.default_rng(0).standard_normal(3 * 8000)).astype(np.float32)
+    engine.denoise_array(sig)  # builds the kernels
+
+    def counts():
+        return rced_edges.launches_first, rced_stack.launches, rced_edges.launches_proj
+
+    before = counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.denoise_array(sig)
+    assert counts() == tuple(n + 1 for n in before)
+    names = {ev.name for ev in prof.events()}
+    assert any("rced_stack_kernel" in n for n in names), "the trace holds no device kernel"
+    assert any("rced_first_kernel" in n for n in names) and any("rced_proj_kernel" in n for n in names)
+    assert not [n for n in names if "cudnn_convolution" in n or "implicit_convolve" in n]
 
 
 def _dw_inputs(B, T, ci, co, device, seed=0):

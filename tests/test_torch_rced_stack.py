@@ -14,7 +14,7 @@ from fullycnnspeechenhancement_tpu.ops import (
 
 from fullycnnspeechenhancement_torch.models import get_model
 from fullycnnspeechenhancement_torch.models.rced import ConvSpec, ModelDef
-from fullycnnspeechenhancement_torch.ops import build, rced_stack
+from fullycnnspeechenhancement_torch.ops import build, rced_edges, rced_stack
 from fullycnnspeechenhancement_torch.train.checkpoint import params_from_numpy
 from test_torch_cuda import NAMES, assert_live, numpy_params, one_cpu_thread_per_worker  # noqa: F401
 
@@ -164,7 +164,7 @@ def test_emulated_kernel_matches_plain_and_jax(name, T):
     model = get_model(name)
     packed = rced_stack.pack_inference_stack(model, tp, tb)
     mag = np.random.default_rng(T).random((2, T, 129)).astype(np.float32)
-    y1 = torch.relu(rced_stack.conv2d_same(torch.as_tensor(mag)[:, None], *packed.first[1:]))
+    y1 = rced_edges.first_plain(packed.edges, torch.as_tensor(mag))
     got, sm = emulate_kernel(packed, y1.contiguous())
     plain = rced_stack.stack_forward_plain(packed, y1)
     assert_live(plain)
