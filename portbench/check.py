@@ -49,6 +49,8 @@ from portbench.reference import dsp, mixing, model, train
 # mantissa bits of the control for a stated precision: TF32 for float32,
 # fp8 e4m3 for bfloat16
 CONTROL_BITS = {"float32": 10, "bfloat16": 3}
+# the training reference's dtype for a stated precision
+REFERENCE_DTYPE = {"float32": torch.float64, "bfloat16": torch.float32}
 EXCLUDE_BELOW = 1e-3
 
 
@@ -96,14 +98,17 @@ def training_reference(layers, seed: int, ini: dict, corpus, batches, device,
                        half_batch: bool = False):
     """(params0, bn0, Steps) of the reference over `batches` ([dataset
     indices] of each step, all drawn in epoch 0), made from the corpus's
-    int16 audio and the run's seed, in float32 without TF32: a million
-    times finer than the bf16 configuration's rounding, and several times
-    faster on the card than float64 (a float32 configuration would need
-    float64; no cell has one).  The bits make a control; `half_batch` is
-    the fault that leaves half of each batch out and takes the mean over
-    the rest (the kept half, twice)."""
-    if ini["model"].get("compute_dtype", "float32") != "bfloat16":
-        raise ValueError("the training reference is float32: it holds bfloat16 configurations only")
+    int16 audio and the run's seed, in `REFERENCE_DTYPE` of the
+    configuration's compute precision: float64 for float32, float32
+    without TF32 for bf16 (a million times finer than its rounding, and
+    several times faster on the card than float64).  The bits make a
+    control, computed in float32 without TF32; `half_batch` is the fault
+    that leaves half of each batch out and takes the mean over the rest
+    (the kept half, twice)."""
+    prec = ini["model"].get("compute_dtype", "float32")
+    if prec not in REFERENCE_DTYPE:
+        raise ValueError(f"no training reference for compute_dtype {prec!r}")
+    dtype = REFERENCE_DTYPE[prec] if dsp_bits is None and model_bits is None else torch.float32
     clean = [c.astype(np.float64) / 32768.0 for c in corpus.clean]
     noise = [c.astype(np.float64) / 32768.0 for c in corpus.noise]
     steps = []
@@ -121,8 +126,7 @@ def training_reference(layers, seed: int, ini: dict, corpus, batches, device,
     try:
         out = train.run_steps(
             layers, p0, bn0, steps, int(t["batch_size"]), float(t["lr"]), float(t["warmup_steps"]),
-            dtype=torch.float32, device=device,
-            bits=model_bits, remat=True,
+            dtype=dtype, device=device, bits=model_bits, remat=True,
         )
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags

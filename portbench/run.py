@@ -132,6 +132,8 @@ def main(argv=None) -> int:
         print(f"portbench: {', '.join(bad)} loaded in the benchmark's process; no result", file=sys.stderr)
         return 3
     line = result(cell, args, outcome, info)
+    if args.trace and outcome.readings.trace is not None:
+        print(f"portbench: trace totals {json.dumps(outcome.readings.trace.totals())}", file=sys.stderr)
     for name, c in outcome.checks.items():
         print(f"{name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     sys.stderr.flush()

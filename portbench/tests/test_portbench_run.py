@@ -135,3 +135,68 @@ def test_an_altered_answer_is_not_correct(monkeypatch, name):
     monkeypatch.setattr(WaveformRebuilder, "__call__", lambda self, *a: real(self, *a) * 1.01)
     out, line = execute(name)
     assert not out.correct, line["checks"]
+
+
+def _float32_numbers(monkeypatch, seed: int) -> dict:
+    """The training numbers of a float32 CR-CED run of the small training
+    cell against its float64 reference: the sound run's, the TF32
+    control's (the reference one precision below, put in the program's
+    place), and those of a state left unchanged and a negated dW planted
+    in the program."""
+    import tempfile
+
+    import fullycnnspeechenhancement_torch.ops.blocked_dw as blocked_dw
+    from portbench import calibrate, check
+    from portbench.drivers import train
+    from portbench.reference.specs import MODELS
+
+    from .tiny import FLOAT32_V3, cell
+
+    c = cell(TRAIN[0], FLOAT32_V3)
+    ini, cpu = c.config["ini"], torch.device("cpu")
+    layers = MODELS[ini["model"]["net_work"]]
+
+    def program():
+        with tempfile.TemporaryDirectory() as tmp:
+            pacer, corpus, _ = train.train_program(c, seed, 0.0, False, cpu, tmp, check_only=True)
+        return pacer, corpus
+
+    pacer, corpus = program()
+    p0, bn0, ref = check.training_reference(layers, seed, ini, corpus, pacer.check_batches, cpu)
+    assert ref.params["decode_final"]["w"].dtype == torch.float64
+    out = {"sound": check.train_numbers(pacer.program(), p0, bn0, ref)}
+    bits = check.CONTROL_BITS[ini["model"]["compute_dtype"]]
+    control = check.training_reference(layers, seed, ini, corpus, pacer.check_batches, cpu, bits, bits)
+    out["tf32_control"] = check.train_numbers(calibrate.as_program(*control), p0, bn0, ref)
+    with monkeypatch.context() as m:
+        _broken_step(m, _unchanged)
+        out["state_unchanged"] = check.train_numbers(program()[0].program(), p0, bn0, ref)
+    with monkeypatch.context() as m:
+        real = blocked_dw.blocked_dw
+        m.setattr(blocked_dw, "blocked_dw", lambda *a: -real(*a))
+        out["negated_dw"] = check.train_numbers(program()[0].program(), p0, bn0, ref)
+    return out
+
+
+# The faults each number reads at least 3x the sound run's (PERF.md §6):
+# change_gap, a gap of norms, reads a negated dW as sound (Adam's first
+# steps move each weight by about the learning rate whatever the sign)
+# and the control within 2x.
+SEPARATES = {
+    "grad_err": ("tf32_control", "state_unchanged", "negated_dw"),
+    "bn_err": ("tf32_control", "state_unchanged", "negated_dw"),
+    "change_gap": ("state_unchanged",),
+}
+
+
+def test_a_float32_training_configuration_is_held_to_float64(monkeypatch, capsys):
+    """`check.training_reference` takes a float32 configuration (here
+    CR-CED on the training cell's path) in float64, and the sound run's
+    numbers sit at least 3x under those of the TF32 control and of the
+    planted faults that SEPARATES names."""
+    out = _float32_numbers(monkeypatch, 2**31 + 41)
+    with capsys.disabled():
+        print(json.dumps(out))
+    for number, faults in SEPARATES.items():
+        for fault in faults:
+            assert out[fault][number] >= 3 * out["sound"][number], (number, fault, out)

@@ -16,8 +16,13 @@ TINY = {
 }
 
 
-def cell(name):
-    return spec.load(ROOT, name, TINY[name])
+# a float32 CR-CED training configuration on the training cell's path
+FLOAT32_V3 = {"config": {"ini": {"model": {"net_work": "FullyCNNV3", "compute_dtype": "float32"}}}}
+
+
+def cell(name, extra=None):
+    """The small cell, with `extra` merged into its files."""
+    return spec.load(ROOT, name, spec._merge(TINY[name], extra))
 
 
 def execute(name, seed: int = 2**31 + 17, seconds: float = 1.0, trace: int = 0):
