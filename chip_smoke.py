@@ -126,6 +126,17 @@ for an H100) and `nvcc`.  It imports only the port
      sets on the products it computes, and the mma.sync design's floor;
      the bf16 train step with dw_pallas on and off beside phase 11's
      float32 step, and one bf16 dispatch's device-busy time;
+ 11d. `ops.bn_chain` alone on V2's 15 BN layers in bf16 at 64 x 384
+     frames with a batch-max mask of 281 (the training cell's batch):
+     each layer's output, BN state and gradients (y, b, gamma, beta,
+     skip) against the plain chain (`chain_plain`) in float64 on the
+     same values, within the card tests' CHAIN_TOL; each stage's device
+     time (moments, apply, grad sums, grad apply) beside its least bytes
+     at 3.35 TB/s, the chain's forward and backward beside the plain
+     chain's, and the least time `bn_chain_roofline` counts.  Phases 8,
+     11a, 17 and 19 require each of its four launch counts at 15 a step
+     (one a BN layer), and each validation pass the forward's two at 15
+     a batch;
 
   The kernel-probe path (the frequency-conv kernels, `freq_conv` and
   `freq_conv_stack`):
@@ -291,6 +302,7 @@ exits non-zero and prints no last line.  Without CUDA it exits 1 at once.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -376,6 +388,43 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def chain_launches() -> tuple:
+    """`ops.bn_chain`'s launch counts: moments, apply, grad sums, grad apply."""
+    from fullycnnspeechenhancement_torch.ops import bn_chain
+
+    return (bn_chain.launches_moments, bn_chain.launches_apply, bn_chain.launches_grad_sums,
+            bn_chain.launches_grad_apply)
+
+
+def reset_chain_launches() -> None:
+    from fullycnnspeechenhancement_torch.ops import bn_chain
+
+    bn_chain.launches_moments = bn_chain.launches_apply = bn_chain.launches_grad_sums = 0
+    bn_chain.launches_grad_apply = 0
+
+
+# each training path's `ops.bn_chain` launches (all four stages), for the
+# `kernels` line
+CHAIN_LAUNCHES = {}
+
+
+def check_chain_launches(what: str, launches: tuple, n_bn: int, steps: int, validations=()) -> None:
+    """Raise unless each stage of `ops.bn_chain` ran once a BN layer a step
+    besides the validation passes of `validations` (`timed_validation`'s
+    entries), and each of those ran the forward's two stages (moments,
+    apply) once a BN layer a batch and no backward stage."""
+    for epoch, _, _, chain in validations:
+        m, a, gs, ga = chain
+        if m != a or m < n_bn or m % n_bn or gs or ga:
+            raise AssertionError(f"{what}: validation after epoch {epoch} launched bn_chain {chain} (moments, "
+                                 f"apply, grad sums, grad apply), expected k * {n_bn}, k * {n_bn}, 0, 0 for k >= 1")
+        launches = tuple(n - v for n, v in zip(launches, chain))
+    if steps < 1 or any(n != n_bn * steps for n in launches):
+        raise AssertionError(f"{what}: bn_chain launched {launches} (moments, apply, grad sums, grad apply) in "
+                             f"{steps} steps besides validation, expected {n_bn * steps} each")
+    CHAIN_LAUNCHES[what] = sum(launches)
 
 
 def check_close(name, got, ref, rtol, atol) -> float:
@@ -1248,15 +1297,16 @@ def time_steps(trainers: dict, batch) -> dict:
 @contextlib.contextmanager
 def timed_validation(validations: list):
     """Within the block, each `Trainer.validate` appends (epoch, seconds,
-    results) to `validations`."""
+    results, `ops.bn_chain`'s launches within it) to `validations`."""
     from fullycnnspeechenhancement_torch.train import trainer as trainer_mod
 
     real_validate = trainer_mod.Trainer.validate
 
     def timed_validate(self, loader, epoch, log=None):
-        v0 = time.perf_counter()
+        v0, c0 = time.perf_counter(), chain_launches()
         out = real_validate(self, loader, epoch, log)
-        validations.append((epoch, time.perf_counter() - v0, out))
+        chain = tuple(n - n0 for n, n0 in zip(chain_launches(), c0))
+        validations.append((epoch, time.perf_counter() - v0, out, chain))
         return out
 
     trainer_mod.Trainer.validate = timed_validate
@@ -1286,6 +1336,8 @@ def run_training(dev, tmp: str, rate: float):
     model = get_model("FullyCNNV2")
     # the inner (1, k) layers, whose dW the kernel computes: 14 for V2
     n_dw = sum(1 for spec in model.layers if spec.kernel[0] == 1 and spec.kernel[1] < 129)
+    # the BN layers, whose chain ops.bn_chain runs: 15 for V2
+    n_bn = sum(spec.use_norm for spec in model.layers)
 
     # -- 8. the training main path ------------------------------------------
     t0 = time.perf_counter()
@@ -1297,10 +1349,12 @@ def run_training(dev, tmp: str, rate: float):
     validations = []
     t0 = time.perf_counter()
     blocked_dw.launches = 0
+    reset_chain_launches()
     with timed_validation(validations):
         trainer = train_cli.main(["--cfg", ini])
     torch.cuda.synchronize()
     launches = blocked_dw.launches
+    chain = chain_launches()
     main_s = time.perf_counter() - t0
     run_dir = trainer.ckpt.dir
     with open(os.path.join(root, "log", "scalars_RCED_FullyCNNV2.jsonl")) as f:
@@ -1314,6 +1368,8 @@ def run_training(dev, tmp: str, rate: float):
         raise AssertionError(f"logged steps {[r['step'] for r in rows]}, expected {EPOCHS * N_UTTS // B_TRAIN}")
     if launches != n_dw * steps:
         raise AssertionError(f"blocked_dw launched {launches} times in {steps} steps, expected {n_dw * steps}")
+    check_chain_launches("training main path", chain, n_bn, steps, validations)
+    log(f"training main path: bn_chain launches {chain} (moments, apply, grad sums, grad apply)")
     if not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError("a logged loss is not finite")
     files = sorted(os.listdir(run_dir))
@@ -1322,7 +1378,7 @@ def run_training(dev, tmp: str, rate: float):
     # the validation pass: once, after epoch VALID_EVERY - 1, in the fork
     # pool (the CUDA context live in the parent), with the native PESQ
     log(f"validation scalars: {valid}")
-    epochs_validated = [e for e, _, _ in validations]
+    epochs_validated = [e for e, *_ in validations]
     if epochs_validated != [VALID_EVERY - 1] or len(valid) != 1 or valid[0]["epoch"] != VALID_EVERY - 1:
         raise AssertionError(f"validated after epochs {epochs_validated}, scalars {valid}")
     keys = sorted(k for k in valid[0] if k != "epoch")
@@ -1537,11 +1593,13 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
                           epochs=EPOCHS_BF16, valid_every=1)
     validations = []
     blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+    reset_chain_launches()
     with timed_validation(validations):
         trainer = train_cli.main(["--cfg", ini])
     torch.cuda.synchronize()
     launches, launches32 = blocked_dw.launches_bf16, blocked_dw.launches
     launches_old = blocked_dw.launches_bf16_mma_sync
+    chain = chain_launches()
     main_s = time.perf_counter() - t0
     with open(os.path.join(root, "log", "scalars_RCED_FullyCNNV2.jsonl")) as f:
         all_rows = [json.loads(line) for line in f]
@@ -1556,6 +1614,8 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
     if launches != n_dw * steps or launches32 != 0 or launches_old != 0:
         raise AssertionError(f"bf16: blocked_dw launched {launches} wgmma, {launches_old} bf16 mma.sync and "
                              f"{launches32} float32 times in {steps} steps, expected {n_dw * steps}, 0 and 0")
+    check_chain_launches("bf16 training main path", chain, sum(spec.use_norm for spec in model.layers), steps,
+                         validations)
     if not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError("bf16: a logged loss is not finite")
     files = sorted(os.listdir(trainer.ckpt.dir))
@@ -1565,7 +1625,7 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
         raise AssertionError("bf16: a param is not float32")
     log(f"bf16 validation scalars: {valid}")
     keys = sorted(k for k in valid[0] if k != "epoch") if len(valid) == 1 else []
-    if [e for e, _, _ in validations] != [0] or keys != ["valid_pesq", "valid_sdr", "valid_stoi"] \
+    if [e for e, *_ in validations] != [0] or keys != ["valid_pesq", "valid_sdr", "valid_stoi"] \
             or not all(np.isfinite(valid[0][k]) for k in keys):
         raise AssertionError(f"bf16: validated after {validations}, scalars {valid}")
     if trainer.evaluator.scoring != "process" or PESQ(sr=SR).implementation != "p862-native":
@@ -1693,6 +1753,168 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
 
 
 # -- the kernel-probe path -------------------------------------------------
+
+
+def run_bn_chain(dev, B: int = 64, T: int = 384, real_t: int = 281, reps: int = 10) -> dict:
+    """Phase 11d: `ops.bn_chain` alone on each of V2's 15 BN layers in bf16
+    at the training cell's B x T = 64 x 384 frames under a batch-max mask
+    of `real_t` frames (4.5 s utterances): each layer's results against
+    the plain chain in float64 (`tests/test_torch_cuda.py`'s
+    `chain_errors` within its CHAIN_TOL; raises on a miss), then each
+    stage's device time (CUDA events around calls queued behind a spin
+    kernel; a reduction with its partial sums' kernel) beside its
+    least bytes at the data sheet's 3.35 TB/s (each operand read once and
+    each result written once, over the real bins: the moments over the
+    masked frames, the rest over every frame), the chain's forward and
+    backward under autograd beside the plain chain's (`chain_plain`),
+    device and host time, and the least time `portbench`'s
+    `bn_chain_roofline` counts (the compute dtype over the batch-max
+    frames: y, the skip and the output forward; g, y and dy backward).
+    Returns the `kernels` line's entry."""
+    from fullycnnspeechenhancement_torch.models import get_model
+    from fullycnnspeechenhancement_torch.models.blocks import moments_from_sums
+    from fullycnnspeechenhancement_torch.ops import bn_chain
+
+    # The card tests' comparison, loaded from its file: a `tests` package
+    # installed beside the interpreter may shadow the repository's folder.
+    found = importlib.util.spec_from_file_location(
+        "card_tests", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "test_torch_cuda.py"))
+    card = importlib.util.module_from_spec(found)
+    found.loader.exec_module(card)
+
+    t0 = time.perf_counter()
+    bf16, f_dim, peak = torch.bfloat16, 129, 3.35e12
+    gen = torch.Generator(device=dev).manual_seed(24)
+    fm = (torch.arange(T, device=dev) < real_t).float()[None]
+    batch = bn_chain.make_batch(B, T, f_dim, 8, bf16, dev, is_training=True, frame_mask=fm)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale + shift
+
+    def fwd_bwd(fn, y, p, state, skip, g):
+        leaves = [y.detach().requires_grad_(True)] + [v.detach().requires_grad_(True) for v in p.values()]
+        if skip is not None:
+            leaves.append(skip.detach().requires_grad_(True))
+        out, _ = fn(leaves[0], dict(zip(p, leaves[1:4])), state, batch, skip=None if skip is None else leaves[4])
+        return torch.autograd.grad(out, leaves, g)
+
+    layers, groups, worst = [], [], 0.0
+    for spec in get_model("FullyCNNV2").layers:
+        if not spec.use_norm:
+            continue
+        C = spec.out_ch
+        shape = (B, T, 17, 8 * C)
+        y, g = draw(*shape, scale=0.8, shift=0.3).to(bf16), draw(*shape).to(bf16)
+        skip = None if spec.skip_from is None else draw(*shape).to(bf16)
+        p = {"b": draw(C, scale=0.1), "gamma": draw(C, scale=0.1, shift=1.0), "beta": draw(C, scale=0.1)}
+        state = {"mean": torch.zeros(C, device=dev), "var": torch.ones(C, device=dev)}
+        case = {"y": y, "p": p, "state": state, "skip": skip, "add": None, "g": g, "frame_mask": fm,
+                "reduce": None, "batch": batch}
+        errs = card.chain_errors(card.run_chain(bn_chain.bn_chain, case), card.plain_reference(case))
+        bad = {k: v for k, v in errs.items() if not v <= card.CHAIN_TOL[bf16]}
+        if bad:
+            raise AssertionError(f"bn_chain {spec.name}: past {card.CHAIN_TOL[bf16]} of the float64 plain chain: "
+                                 f"{bad}")
+        worst = max(worst, *errs.values())
+        del case
+        s = bn_chain.moments(y, p["b"], batch)
+        mean, var = moments_from_sums(s[0], s[1], batch.n)
+        local = bn_chain.grad_sums(g, y, skip, p["b"], p["gamma"], p["beta"], mean, var, True, f_dim)
+        stages = {
+            "moments": lambda y=y, p=p: bn_chain.moments(y, p["b"], batch),
+            "apply": lambda y=y, p=p, mean=mean, var=var, skip=skip: bn_chain.apply_chain(
+                y, p["b"], p["gamma"], p["beta"], mean, var, skip, None, True, f_dim),
+            "grad_sums": lambda g=g, y=y, p=p, mean=mean, var=var, skip=skip: bn_chain.grad_sums(
+                g, y, skip, p["b"], p["gamma"], p["beta"], mean, var, True, f_dim),
+            "grad_apply": lambda g=g, y=y, p=p, mean=mean, var=var, skip=skip, local=local, s=s: bn_chain.grad_apply(
+                g, y, skip, p["b"], p["gamma"], p["beta"], mean, var, local, local, s[0], batch.n, batch, True),
+            "chain": lambda g=g, y=y, p=p, state=state, skip=skip: fwd_bwd(bn_chain.bn_chain, y, p, state, skip, g),
+            "plain": lambda g=g, y=y, p=p, state=state, skip=skip: fwd_bwd(bn_chain.chain_plain, y, p, state, skip,
+                                                                            g),
+        }
+        value = 2 * f_dim * C  # bytes of one frame of one tensor's real bins
+        links = int(skip is not None)
+        least = {"moments": B * real_t * value, "apply": B * T * value * (2 + links),
+                 "grad_sums": B * T * value * (2 + links), "grad_apply": B * T * value * (3 + 2 * links)}
+        layers.append((spec.name, C, links, least, B * real_t * value * (2 + links + 3)))
+        for name, fn in stages.items():
+            fn()
+            groups.append((f"{spec.name}/{name}", fn))
+    # A stage alone is shorter than its launch, so a clock around a loop of
+    # launches would time the host.  Each group's calls are launched behind
+    # a spin kernel instead, between two CUDA events: where the host has
+    # launched them all before the spin ends (the first event not yet
+    # reached), the device runs them back to back, and the events time the
+    # device alone; the spin is lengthened until it is.  (The profiler can
+    # miss the device events launched soon after it starts, so it times
+    # nothing here.)
+    # The host time of each group is kept beside, and each group must move
+    # `ops.bn_chain`'s launch counters by what it launches: one stage a
+    # call, all four in the chain, none in the plain chain.
+    launched = {"moments": (1, 0, 0, 0), "apply": (0, 1, 0, 0), "grad_sums": (0, 0, 1, 0),
+                "grad_apply": (0, 0, 0, 1), "chain": (1, 1, 1, 1), "plain": (0, 0, 0, 0)}
+    host, busy = {}, {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for label, fn in groups:
+        for cycles in (10**7, 10**8, 10**9):
+            torch.cuda.synchronize()
+            before = chain_launches()
+            torch.cuda._sleep(cycles)
+            start.record()
+            t1 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host[label] = (time.perf_counter() - t1) * 1e3 / reps
+            ahead = not start.query()
+            end.record()
+            torch.cuda.synchronize()
+            moved = tuple(n - n0 for n, n0 in zip(chain_launches(), before))
+            want = tuple(k * reps for k in launched[label.split("/")[1]])
+            if moved != want:
+                raise AssertionError(f"bn_chain {label}: launch counters moved {moved}, expected {want}")
+            if ahead:
+                busy[label] = start.elapsed_time(end) / reps
+                break
+        else:
+            raise AssertionError(f"bn_chain {label}: the host took {host[label]:.3f} ms a call, longer than the "
+                                 "longest spin")
+    totals = dict.fromkeys(("stages_ms", "chain_ms", "plain_ms", "least_ms", "metric_ms"), 0.0)
+    for name, C, links, least, metric_bytes in layers:
+        row = {"layer": name, "C": C, "skip": bool(links)}
+        for stage, nbytes in least.items():
+            ms = busy[f"{name}/{stage}"]
+            row[f"{stage}_ms"] = ms
+            row[f"{stage}_share_of_least_bytes"] = nbytes / peak * 1e3 / ms
+            totals["stages_ms"] += ms
+            totals["least_ms"] += nbytes / peak * 1e3
+        for which in ("chain", "plain"):
+            row[f"{which}_ms"], row[f"{which}_host_ms"] = busy[f"{name}/{which}"], host[f"{name}/{which}"]
+            totals[f"{which}_ms"] += row[f"{which}_ms"]
+        totals["metric_ms"] += metric_bytes / peak * 1e3
+        log("bn_chain " + json.dumps(row))
+    log(f"bn_chain, V2's 15 BN layers at {B} x {T} frames, bf16: the four stages {totals['stages_ms']:.3f} ms "
+        f"(least bytes {totals['least_ms']:.3f} ms, {100 * totals['least_ms'] / totals['stages_ms']:.1f}%); forward "
+        f"and backward under autograd {totals['chain_ms']:.3f} ms of device time against the plain chain's "
+        f"{totals['plain_ms']:.3f} ms; bn_chain_roofline's least time {totals['metric_ms']:.3f} ms "
+        f"({100 * totals['metric_ms'] / totals['stages_ms']:.1f}% of the stages)")
+    phase("bn_chain alone", t0)
+    return {
+        "name": "bn_chain",
+        "dtype": "bfloat16",
+        "route": "cuda",
+        "source": "fullycnnspeechenhancement_torch/ops/csrc/bn_chain.cu",
+        "replaces": None,
+        "ms": totals["stages_ms"],
+        "chain_device_ms": totals["chain_ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["least_ms"],
+        "bound_by": "bytes",
+        "bound_note": "each stage's operands read once and results written once at 3.35 TB/s",
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the chain",
+        "at": f"V2's 15 BN layers at {B} x {T} frames, batch-max mask of {real_t}, summed",
+        "max_rel_err": worst,
+    }
 
 
 def distinct_elements(t) -> int:
@@ -2371,6 +2593,7 @@ def run_device_cache(dev, tmp: str, ctx: dict) -> dict:
 
     model = get_model("FullyCNNV2")
     n_dw = sum(1 for spec in model.layers if spec.kernel[0] == 1 and spec.kernel[1] < 129)
+    n_bn = sum(spec.use_norm for spec in model.layers)
     corpus = ctx["corpus"]
     manifest = [e.audio_filepath for e in read_manifest(corpus["clean"])]
     launches = {}
@@ -2407,6 +2630,7 @@ def run_device_cache(dev, tmp: str, ctx: dict) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+        reset_chain_launches()
         t0 = time.perf_counter()
         train_cli.build_loaders, device_cache.commit_flats = timed_build, timed_commit
         Trainer._dispatch_cached = counted_dispatch
@@ -2419,6 +2643,7 @@ def run_device_cache(dev, tmp: str, ctx: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n, n32, n_old = blocked_dw.launches_bf16, blocked_dw.launches, blocked_dw.launches_bf16_mma_sync
+        chain = chain_launches()
         rows, valid = logged_losses(root)
         steps = len(rows)
         rates = epoch_rates(root)
@@ -2432,6 +2657,8 @@ def run_device_cache(dev, tmp: str, ctx: dict) -> dict:
                                  f"{n32} float32 times in {steps} steps, expected {n_dw * steps}, 0 and 0")
         if sum(ks) != steps:
             raise AssertionError(f"device cache {tag}: dispatches of {ks} steps, {steps} steps logged")
+        check_chain_launches(f"device cache {tag}", chain, n_bn, steps, validations)
+        log(f"device cache {tag}: bn_chain launches {chain} (moments, apply, grad sums, grad apply)")
         if not all(np.isfinite(r["loss"]) for r in rows):
             raise AssertionError(f"device cache {tag}: a logged loss is not finite")
         if sorted(os.listdir(trainer.ckpt.dir)) != [f"epoch_{e}.pt" for e in range(epochs)]:
@@ -2449,7 +2676,7 @@ def run_device_cache(dev, tmp: str, ctx: dict) -> dict:
     if steps != 2 * N_UTTS // B_TRAIN or ks != [8, 8]:
         raise AssertionError(f"resident run: {steps} steps in dispatches of {ks}, expected two of 8")
     keys = sorted(k for k in valid[0] if k != "epoch") if len(valid) == 1 else []
-    if [e for e, _, _ in validations] != [1] or keys != ["valid_pesq", "valid_sdr", "valid_stoi"] \
+    if [e for e, *_ in validations] != [1] or keys != ["valid_pesq", "valid_sdr", "valid_stoi"] \
             or not all(np.isfinite(valid[0][k]) for k in keys):
         raise AssertionError(f"resident run: validated after {validations}, scalars {valid}")
     log(f"resident run: flats {loader.corpus.nbytes() / 2**20:.1f} MiB on the card; validation {valid[0]}")
@@ -2741,12 +2968,14 @@ def _dp_rank(rank: int, init_method: str, inis: dict, out_dir: str, device: str)
     try:
         for tag, ini in inis.items():
             blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+            reset_chain_launches()
             t0 = time.perf_counter()
             trainer = train_cli.main(["--cfg", ini, "--device", device, "--num-works", "4"])
             _sync(device)
             out[tag] = {
                 "float32": blocked_dw.launches, "bf16_wgmma": blocked_dw.launches_bf16,
-                "bf16_mma_sync": blocked_dw.launches_bf16_mma_sync, "wall_s": time.perf_counter() - t0,
+                "bf16_mma_sync": blocked_dw.launches_bf16_mma_sync, "bn_chain": list(chain_launches()),
+                "wall_s": time.perf_counter() - t0,
                 "steps": trainer._host_step, "rows": trainer.config.train.batch_size // DP_RANKS,
             }
             out[tag].update(_dp_step_timing(trainer, rank, device))
@@ -2821,6 +3050,7 @@ def run_data_parallel(dev, tmp: str, corpus: dict, single_last: str) -> dict:
     t0 = time.perf_counter()
     model = get_model("FullyCNNV2")
     n_dw = sum(1 for spec in model.layers if spec.kernel[0] == 1 and spec.kernel[1] < 129)
+    n_bn = sum(spec.use_norm for spec in model.layers)
     rank_device = str(dev) if dev.index is not None or dev.type != "cuda" else "cuda:0"
     extra = f"data_parallel={DP_RANKS}\n"
     roots = {"float32": os.path.join(tmp, "dp32"), "bf16": os.path.join(tmp, "dp16")}
@@ -2861,6 +3091,7 @@ def run_data_parallel(dev, tmp: str, corpus: dict, single_last: str) -> dict:
         if got["steps"] != steps or got["float32"] != n_dw * steps or got["bf16_wgmma"] or got["bf16_mma_sync"]:
             raise AssertionError(f"DP float32 rank {r}: {got}, expected {n_dw * steps} float32 launches in "
                                  f"{steps} steps")
+        check_chain_launches(f"DP float32 rank {r}", tuple(got["bn_chain"]), n_bn, steps)
     losses = np.array([x["loss"] for x in rows])
     ref_losses = np.array([x["loss"] for x in ref_rows])
     if steps != EPOCHS * N_UTTS // B_TRAIN or len(ref_losses) != steps:
@@ -2887,6 +3118,7 @@ def run_data_parallel(dev, tmp: str, corpus: dict, single_last: str) -> dict:
         if got["steps"] != steps16 or got["bf16_wgmma"] != n_dw * steps16 or got["float32"] or got["bf16_mma_sync"]:
             raise AssertionError(f"DP bf16 rank {r}: {got}, expected {n_dw * steps16} wgmma launches in "
                                  f"{steps16} steps")
+        check_chain_launches(f"DP bf16 rank {r}", tuple(got["bn_chain"]), n_bn, steps16)
     losses16 = np.array([x["loss"] for x in rows16])
     ref16 = np.array([x["loss"] for x in ref16[:steps16]])
     if steps16 != N_UTTS // B_TRAIN or len(ref16) != steps16:
@@ -3380,9 +3612,9 @@ def build_kernels() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
     from fullycnnspeechenhancement_torch.data import native
-    from fullycnnspeechenhancement_torch.ops import blocked_dw, build, freq_conv, rced_edges, rced_stack
+    from fullycnnspeechenhancement_torch.ops import blocked_dw, bn_chain, build, freq_conv, rced_edges, rced_stack
 
-    names = ("rced_stack", "rced_edges", "blocked_dw", "freq_conv")
+    names = ("rced_stack", "rced_edges", "blocked_dw", "freq_conv", "bn_chain")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -3407,6 +3639,7 @@ def build_kernels() -> str:
     rced_edges.load_library()
     blocked_dw.load_library()
     freq_conv.load_library()
+    bn_chain.load_library()
     for name in names:
         log(f"build: {name}.cu in {seconds[name]:.1f} s")
         log_path = f"{build.library_path(name)}.log"
@@ -3454,6 +3687,7 @@ def main() -> int:
         phase("serving", t0)
         dw_entry, last_checkpoint, train_ctx = run_training(dev, tmp, mma_rate)
         dw_bf16_entry = run_training_bf16(dev, tmp, train_ctx, rate_bf16, rate_wgmma)
+        chain_bn_entry = run_bn_chain(dev)
         t0 = time.perf_counter()
         probe_path = run_probe_path(dev, mma_rate)
         phase("probe path", t0)
@@ -3554,7 +3788,10 @@ def main() -> int:
         },
         "at": f"roll2's shape, depth {max(chain)}; launches on the probe path",
     }
-    entries = [stack_entry, stack_bf16_entry, *edge_entries, dw_entry, dw_bf16_entry, conv_entry, chain_entry]
+    chain_bn_entry["launches_by_path"] = dict(CHAIN_LAUNCHES)
+    chain_bn_entry["launches"] = sum(CHAIN_LAUNCHES.values())
+    entries = [stack_entry, stack_bf16_entry, *edge_entries, dw_entry, dw_bf16_entry, conv_entry, chain_entry,
+               chain_bn_entry]
     for e in entries:
         e["kernel_ms"] = e["ms"]
     kernels = {"kernels": entries}

@@ -29,7 +29,11 @@ Semantics kept relative to `ModelDef.apply`:
 Activations keep the JAX layout [B, T, NB, fb*C] at this module's
 functions; the convs see channels-last NCHW views of them.  With
 `dw_pallas`, the (1, KB) inner layers go through
-`ops/blocked_dw.py::blocked_freq_conv`, whose dW is the CUDA kernel.
+`ops/blocked_dw.py::blocked_freq_conv`, whose dW is the CUDA kernel.  Each
+layer's chain after its conv (bias, BN, skip, ReLU, residual, pad band) is
+`ops/bn_chain.py::chain_plain`; a training-mode forward runs the BN
+layers' chains through `ops/bn_chain.py::bn_chain`, CUDA kernels forward
+and backward on the card and `chain_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -40,14 +44,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from fullycnnspeechenhancement_torch.models.blocks import (
-    bn_scale_shift,
-    moments_from_sums,
-    tf_same_pads,
-    updated_bn_state,
-)
+from fullycnnspeechenhancement_torch.models.blocks import tf_same_pads
 from fullycnnspeechenhancement_torch.models.rced import ModelDef
 from fullycnnspeechenhancement_torch.ops.blocked_dw import blocked_freq_conv, conv_nhwc
+from fullycnnspeechenhancement_torch.ops.bn_chain import bn_chain, chain_plain, make_batch
 
 FB_DEFAULT = 8
 
@@ -91,13 +91,6 @@ def _block_weight(w: torch.Tensor, fb: int) -> Tuple[torch.Tensor, int]:
     return g.reshape(kh, kb, fb * cin, fb * cout), dc
 
 
-def _freq_mask(f_dim: int, fb: int, dtype, device=None) -> torch.Tensor:
-    """[1, 1, NB, fb] 1.0 where the bin index is a real frequency."""
-    nb = -(-f_dim // fb)
-    m = (torch.arange(nb * fb, device=device) < f_dim).to(dtype)
-    return m.reshape(1, 1, nb, fb)
-
-
 def block_input(x: torch.Tensor, fb: int) -> torch.Tensor:
     """NHWC [B, T, F, C] -> [B, T, NB, fb*C] (freq zero-padded to NB*fb)."""
     B, T, F, C = x.shape
@@ -130,29 +123,17 @@ def apply_blocked(
     floating-point reduction order.  `frame_mask` ([B, T] or [1, T])
     restricts BN batch statistics to masked frames; the frequency pad-band
     mask composes with it.  `reduce` takes the statistics over every
-    data-parallel rank (`blocks.moments_from_sums`).
+    data-parallel rank (`blocks.moments_from_sums`), and the chain's
+    backward sums too (`ops/bn_chain.py`).
     """
     B, T, F, _ = x.shape
-    nb = -(-F // fb)
     dt = x.dtype
-    mask4 = _freq_mask(F, fb, dt, x.device)  # [1, 1, NB, fb]
-    mdt = torch.promote_types(torch.float32, dt)
-    if is_training:
-        m_bn = mask4.to(mdt)[..., None]  # [1, 1, NB, fb, 1]
-        if frame_mask is None:
-            n_bn = torch.tensor(float(B * T * F), dtype=mdt, device=x.device)
-        else:
-            # [1, T] batch-max masks stay broadcast; the denominator scales
-            # by the broadcast factor.
-            fm = frame_mask.to(mdt)
-            m_bn = m_bn * fm[:, :, None, None, None]
-            n_bn = fm.sum() * F * (B // frame_mask.shape[0])
+    batch = make_batch(B, T, F, fb, dt, x.device, is_training=is_training, frame_mask=frame_mask)
 
     z = block_input(x, fb)
     taps, new_state = {}, {}
     for spec in model.layers:
         p = params[spec.name]
-        cout = spec.out_ch
         kh, kw = spec.kernel
 
         if kw >= F:  # the (1, 129) projection: run unblocked
@@ -173,33 +154,20 @@ def apply_blocked(
             y = blocked_freq_conv(z, wb.to(dt), dc)
         else:
             y = conv_nhwc(z, wb.to(dt), (tf_same_pads(spec.kernel)[0], (dc, kb - 1 - dc)))
-        y = y + p["b"].repeat(fb).to(dt)
-
-        if spec.use_norm:
-            s = state.get(spec.name, {})
-            if is_training:
-                # Masked biased moments over (B, T, real F) per canonical
-                # channel, in at least float32.
-                y32 = y.to(mdt).reshape(B, T, nb, fb, cout)
-                mean, var = moments_from_sums(
-                    (y32 * m_bn).sum(dim=(0, 1, 2, 3)), (y32 * y32 * m_bn).sum(dim=(0, 1, 2, 3)),
-                    n_bn, reduce,
-                )
-                new_state[spec.name] = updated_bn_state(s, mean, var)
-            else:
-                mean, var = s["mean"], s["var"]
-            scale, shift = bn_scale_shift(p, mean, var)
-            y = y * scale.repeat(fb).to(dt) + shift.repeat(fb).to(dt)
-
-        if spec.skip_from is not None:
-            y = y + taps[spec.skip_from]
-        if spec.use_act:
-            y = torch.relu(y)
-        if spec.add_from is not None:
-            y = y + taps[spec.add_from]
-        # Re-zero the pad band so the next layer's neighbour-block taps and
-        # the next BN's masked sums read true zeros.
-        y = (y.reshape(B, T, nb, fb, cout) * mask4[..., None]).reshape(B, T, nb, fb * cout)
+        links = dict(
+            skip=None if spec.skip_from is None else taps[spec.skip_from],
+            add=None if spec.add_from is None else taps[spec.add_from],
+            relu=spec.use_act, reduce=reduce,
+        )
+        s = state.get(spec.name, {})
+        # Batch statistics go through bn_chain (kernels on the card); eval
+        # mode and a layer without BN stay plain.
+        if spec.use_norm and is_training:
+            y, st = bn_chain(y, p, s, batch, **links)
+        else:
+            y, st = chain_plain(y, p, s, batch, use_norm=spec.use_norm, is_training=is_training, **links)
+        if st is not None:
+            new_state[spec.name] = st
         taps[spec.name] = y
         z = y
 

@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from fullycnnspeechenhancement_torch.models import get_model
-from fullycnnspeechenhancement_torch.ops import blocked_dw, freq_conv, rced_edges, rced_stack
+from fullycnnspeechenhancement_torch.models import blocks, get_model
+from fullycnnspeechenhancement_torch.ops import blocked_dw, bn_chain, freq_conv, rced_edges, rced_stack
 from fullycnnspeechenhancement_torch.probes import all_probes
 from fullycnnspeechenhancement_torch.train.checkpoint import params_from_numpy
 
@@ -971,3 +971,271 @@ def test_dp_step_on_cuda_matches_cpu_plain(cuda_device, tmp_path, dtype):
     scale = max(np.abs(v).max() for v in ref["mu"].values())
     err = max(np.abs(r0["mu"][k] - v).max() for k, v in ref["mu"].items()) / scale
     assert err < 1e-2, f"Adam mu off by {err:.3e} of its global scale"
+
+
+# -- the BN chain of the blocked training step (ops/bn_chain.py) ------------
+
+
+def chain_case(C, B, T, dtype, device="cpu", *, mask="batch_max", link="none", seed=0, reduce=None):
+    """One BN layer's chain at C channels over B x T frames in the blocked
+    layout (129 bins in 17 blocks of 8): the conv output y before its bias
+    (its pad band holds values too, which the chain must ignore), the
+    layer's parameters (float64 where `dtype` is, else float32) and BN
+    state, the skip source and the residual per `link` ("none", "skip",
+    "add", "both"), an output gradient g and the forward's Batch over the
+    frame mask `mask`: "batch_max" ([1, T], the first 70% of the frames),
+    "utterance" ([B, T], a length a row, the last row one frame) or
+    "none"; `reduce` the data-parallel sum."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (B, T, 17, 8 * C)
+    pdt = torch.float64 if dtype == torch.float64 else torch.float32
+
+    def draw(*size, scale=1.0, shift=0.0):
+        return torch.randn(*size, generator=gen, dtype=torch.float64) * scale + shift
+
+    y = draw(*shape, scale=0.8, shift=0.3)
+    p = {"b": draw(C, scale=0.1), "gamma": draw(C, scale=0.1, shift=1.0), "beta": draw(C, scale=0.1)}
+    state = {"mean": torch.rand(C, generator=gen, dtype=torch.float64),
+             "var": 1 + torch.rand(C, generator=gen, dtype=torch.float64)}
+    skip = draw(*shape) if link in ("skip", "both") else None
+    add = draw(*shape) if link in ("add", "both") else None
+    g = draw(*shape)
+    frames = torch.arange(T)
+    if mask == "batch_max":
+        fm = (frames < max(1, int(0.7 * T))).float()[None]
+    elif mask == "utterance":
+        lengths = torch.randint(1, T + 1, (B,), generator=gen)
+        lengths[-1] = 1
+        fm = (frames[None] < lengths[:, None]).float()
+    else:
+        fm = None
+    dev = torch.device(device)
+
+    def on(t, dt):
+        return None if t is None else t.to(device=dev, dtype=dt)
+
+    case = {"y": on(y, dtype), "p": {k: on(v, pdt) for k, v in p.items()},
+            "state": {k: on(v, pdt) for k, v in state.items()}, "skip": on(skip, dtype), "add": on(add, dtype),
+            "g": on(g, dtype), "frame_mask": on(fm, torch.float32), "reduce": reduce}
+    case["batch"] = _chain_batch(case)
+    return case
+
+
+def _chain_batch(case, frame_mask=...):
+    y = case["y"]
+    B, T = y.shape[:2]
+    fm = case["frame_mask"] if frame_mask is ... else frame_mask
+    return bn_chain.make_batch(B, T, 129, 8, y.dtype, y.device, is_training=True, frame_mask=fm)
+
+
+def run_chain(fn, case, *, relu=True, batch=None):
+    """`fn` (`bn_chain.bn_chain`, `chain_plain` or `chain_closed_form`) on
+    `case` -> (out, new BN state, {name: gradient against case["g"]}) for
+    y, b, gamma, beta and the sources the case has."""
+    leaves = {"y": case["y"].clone().requires_grad_(True)}
+    leaves.update({k: v.clone().requires_grad_(True) for k, v in case["p"].items()})
+    for k in ("skip", "add"):
+        if case[k] is not None:
+            leaves[k] = case[k].clone().requires_grad_(True)
+    p = {k: leaves[k] for k in ("b", "gamma", "beta")}
+    out, state = fn(leaves["y"], p, case["state"], case["batch"] if batch is None else batch,
+                    skip=leaves.get("skip"), add=leaves.get("add"), relu=relu, reduce=case["reduce"])
+    grads = torch.autograd.grad(out, list(leaves.values()), grad_outputs=case["g"])
+    return out.detach(), state, dict(zip(leaves, grads))
+
+
+def _skip_after_relu(y, p, s, batch, *, skip=None, add=None, relu=True, reduce=None):
+    return bn_chain.chain_plain(y, p, s, batch, skip=None, add=skip, relu=relu, reduce=reduce)
+
+
+def plain_reference(case, *, relu=True, fault=None):
+    """`run_chain` of the plain chain (`chain_plain`) in float64 on the
+    case's values, or of a plain chain with a planted fault:
+    "no_frame_mask" (the moments over every frame) or "skip_after_relu"."""
+    ref = dict(case)
+    for k in ("y", "skip", "add", "g"):
+        ref[k] = None if case[k] is None else case[k].double()
+    ref["p"] = {k: v.double() for k, v in case["p"].items()}
+    ref["state"] = {k: v.double() for k, v in case["state"].items()}
+    ref["batch"] = _chain_batch(ref, None if fault == "no_frame_mask" else ...)
+    return run_chain(_skip_after_relu if fault == "skip_after_relu" else bn_chain.chain_plain, ref, relu=relu)
+
+
+# The chain against the plain chain in float64 on the same values, by each
+# result's distance ||got - ref|| / ||ref||.  float64: the same arithmetic
+# in another order.  float32 and bf16: where u, the value before the ReLU,
+# lies within a float32 rounding of 0, the kernels' ReLU decision can
+# differ from float64's, and that element's gradient by all of |g|: at V2's
+# 64 x 384 frames a few elements of 10^8, about 3e-4 of a gradient's norm.
+# bf16 adds the one rounding of each result from float32 (2^-9 relative at
+# most, about 1e-3 of a norm); the plain chain in bf16 rounds after the
+# bias, the scale, the shift and the skip and after each backward
+# operation, and its ReLU decisions follow those roundings (2-4% of a
+# gradient's norm from float64 on the CPU tests' cases), so it is no
+# yardstick for the kernels.  The bias's gradient is 0 but for rounding on
+# both sides (the bias moves no output of a training-mode BN), so it is
+# held to the same share of ||dbeta||, a gradient of its order (the cases'
+# BN scales are near 1).  The running statistics move by 1% of the
+# batch's, which the sums' tests hold directly.
+CHAIN_TOL = {torch.float64: 1e-9, torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+def chain_errors(got, ref):
+    """{result: distance} of two `run_chain` results (CHAIN_TOL)."""
+    out, state, grads = got
+    r_out, r_state, r_grads = ref
+    d = lambda a, b: ((a.double() - b.double()).norm() / b.double().norm()).item()  # noqa: E731
+    errs = {"out": d(out, r_out)}
+    errs.update({f"state_{k}": d(state[k], r_state[k]) for k in r_state})
+    for k, v in r_grads.items():
+        if k != "b":
+            errs[f"d{k}"] = d(grads[k], v)
+    errs["db"] = ((grads["b"].double() - r_grads["b"].double()).norm() / r_grads["beta"].double().norm()).item()
+    return errs
+
+
+def assert_chain_close(got, ref, dtype):
+    """Raise unless every distance of `chain_errors` is within CHAIN_TOL."""
+    errs = chain_errors(got, ref)
+    bad = {k: v for k, v in errs.items() if not v <= CHAIN_TOL[dtype]}
+    assert not bad, f"past {CHAIN_TOL[dtype]}: {bad}"
+
+
+def _chain_counts():
+    return (bn_chain.launches_moments, bn_chain.launches_apply, bn_chain.launches_grad_sums,
+            bn_chain.launches_grad_apply)
+
+
+# (C, link) of BN layers: V2's layer 1, its widest encoder, its widest
+# decoder (a skip) and its last; V3's residual layer; V1's widest
+BN_CHAIN_LAYERS = [(10, "none"), (25, "none"), (23, "skip"), (10, "skip"), (8, "add"), (32, "none")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mask", ["batch_max", "utterance", "none"])
+@pytest.mark.parametrize("C, link", BN_CHAIN_LAYERS)
+def test_bn_chain_matches_plain_on_cuda(cuda_device, C, link, mask, dtype):
+    """The kernels (one call of each stage) against the plain chain in
+    float64 at a small shape (45 frames, a 70% batch-max mask, per-utterance
+    masks down to one frame, no mask): output, BN state and every
+    gradient within CHAIN_TOL."""
+    case = chain_case(C, 3, 45, dtype, cuda_device, mask=mask, link=link, seed=C)
+    before = _chain_counts()
+    got = run_chain(bn_chain.bn_chain, case)
+    torch.cuda.synchronize()
+    assert _chain_counts() == tuple(n + 1 for n in before)
+    assert_chain_close(got, plain_reference(case), dtype)
+
+
+# V2's BN layers at the training cell's batch, 64 x 384 frames
+BN_CHAIN_V2 = [(10, "none"), (25, "none"), (23, "skip"), (10, "skip")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("C, link", BN_CHAIN_V2)
+def test_bn_chain_matches_plain_at_v2_size_on_cuda(cuda_device, C, link, dtype):
+    """At 64 x 384 frames with the batch-max mask, against the plain chain
+    in float64; in bf16 also nearer to it than the plain chain in bf16 is
+    (in float32 both sit at rounding's level)."""
+    case = chain_case(C, 64, 384, dtype, cuda_device, link=link, seed=100 + C)
+    ref = plain_reference(case)
+    got = run_chain(bn_chain.bn_chain, case)
+    assert_chain_close(got, ref, dtype)
+    plain = chain_errors(run_chain(bn_chain.chain_plain, case), ref)
+    mine = chain_errors(got, ref)
+    print(f"C={C} {link} {dtype}: kernels {mine}, plain chain {plain}")
+    if dtype == torch.bfloat16:
+        assert max(mine.values()) <= max(plain.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(3, 45), (64, 384)], ids=["small", "v2"])
+def test_bn_chain_sums_match_their_twins_on_cuda(cuda_device, shape, dtype):
+    """The moments and the gradient's sums from the kernels against their
+    twins in float64 on the same values: float32 sums over up to 10^7
+    values in a fixed order, held at 1e-5 of their norm.  The gradient's
+    sums are taken without the ReLU here: where u lies within a float32
+    rounding of 0 the kernels' ReLU decision may differ from float64's
+    and move a channel's sum by a whole |g| (CHAIN_TOL's tests hold the
+    ReLU)."""
+    case = chain_case(23, *shape, dtype, cuda_device, link="skip", seed=7)
+    y, p, batch, skip, g = case["y"], case["p"], case["batch"], case["skip"], case["g"]
+    s = bn_chain.moments(y, p["b"], batch)
+    ref = bn_chain.moments_twin(y.double(), p["b"].double(), batch)
+    for i in range(2):
+        assert ((s[i].double() - ref[i]).norm() / ref[i].norm()).item() < 1e-5
+    mean, var = blocks.moments_from_sums(s[0], s[1], batch.n)
+    gs = bn_chain.grad_sums(g, y, skip, p["b"], p["gamma"], p["beta"], mean, var, False, 129)
+    gref = bn_chain.grad_sums_twin(g.double(), y.double(), skip.double(), p["b"].double(), p["gamma"].double(),
+                                   p["beta"].double(), mean.double(), var.double(), False, 129)
+    for i in range(2):
+        assert ((gs[i].double() - gref[i]).norm() / gref[i].norm()).item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["no_frame_mask", "skip_after_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_bn_chain_check_sees_planted_faults_on_cuda(cuda_device, dtype, fault):
+    """The check above fails against a plain chain with a dropped frame
+    mask or a skip added after the ReLU."""
+    case = chain_case(23, 4, 64, dtype, cuda_device, link="skip", seed=9)
+    got = run_chain(bn_chain.bn_chain, case)
+    assert_chain_close(got, plain_reference(case), dtype)
+    with pytest.raises(AssertionError):
+        assert_chain_close(got, plain_reference(case, fault=fault), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(3, 45), (64, 384)], ids=["small", "v2"])
+def test_bn_chain_repeats_bit_for_bit_on_cuda(cuda_device, shape, dtype):
+    """Two runs give the same output, BN state and gradients, bit for bit
+    (fixed-order sums, no atomics)."""
+    case = chain_case(23, *shape, dtype, cuda_device, mask="utterance", link="skip", seed=11)
+    a, b = run_chain(bn_chain.bn_chain, case), run_chain(bn_chain.bn_chain, case)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+    assert all(torch.equal(a[2][k], b[2][k]) for k in a[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float64", "channels", "misaligned"])
+def test_bn_chain_raises_instead_of_falling_back_on_cuda(cuda_device, bad):
+    case = chain_case(8, 2, 6, torch.float32, cuda_device)
+    y, p = case["y"], case["p"]
+    if bad == "float64":
+        y = y.double()
+    elif bad == "channels":
+        p = {k: torch.zeros(65, device=cuda_device) for k in p}
+        y = torch.zeros(2, 6, 17, 8 * 65, device=cuda_device)
+    else:
+        y = torch.zeros(y.numel() + 1, device=cuda_device)[1:].view(y.shape)
+    before = _chain_counts()
+    with pytest.raises(ValueError):
+        bn_chain.bn_chain(y, p, case["state"], case["batch"])
+    assert _chain_counts() == before
+
+
+@pytest.mark.cuda
+def test_blocked_step_runs_every_bn_layer_through_the_kernels_on_cuda(cuda_device):
+    """A bf16 training forward and backward of V2 in the blocked form calls
+    each stage once a BN layer (15), with finite gradients."""
+    model = get_model("FullyCNNV2")
+    params, state = params_from_numpy(*numpy_params("FullyCNNV2", 3, centred_bn=True), device=cuda_device)
+    for v in params.values():
+        for t in v.values():
+            t.requires_grad_(True)
+    x = torch.rand(2, 40, 129, 1, device=cuda_device).to(torch.bfloat16)
+    fm = (torch.arange(40, device=cuda_device) < 30).float()[None]
+    before = _chain_counts()
+    from fullycnnspeechenhancement_torch.models.blocked import apply_blocked
+
+    y, _ = apply_blocked(model, params, state, x, is_training=True, frame_mask=fm, dw_pallas=True)
+    leaves = [t for v in params.values() for t in v.values()]
+    grads = torch.autograd.grad(y.float().square().sum(), leaves)
+    torch.cuda.synchronize()
+    assert _chain_counts() == tuple(n + 15 for n in before)
+    assert all(torch.isfinite(g).all() for g in grads)
