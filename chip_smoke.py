@@ -137,6 +137,14 @@ for an H100) and `nvcc`.  It imports only the port
      11a, 17 and 19 require each of its four launch counts at 15 a step
      (one a BN layer), and each validation pass the forward's two at 15
      a batch;
+ 11e. `ops.proj_train` (the final (1, 129) projection of the bf16 blocked
+     step) alone at 64 x 384 frames: its forward, dX, dW and db against
+     the plain projection in float64 within the card tests' PROJ_TOL, dX's
+     pad band 0, each kernel's device time beside the three passes' least
+     time (bytes) and cuDNN's forward and backward (`library_ms`).  Phases
+     11a, 17 and 19's bf16 run require one forward, one dX and one dW
+     launch a step and each validation pass forward launches alone; phases
+     8 and 19's float32 run (the projection on cuDNN) none;
 
   The kernel-probe path (the frequency-conv kernels, `freq_conv` and
   `freq_conv_stack`):
@@ -280,12 +288,13 @@ for an H100) and `nvcc`.  It imports only the port
      than 0.06 over the mix's), the runs from the port's own init record
      theirs; each run's JSON line is printed beside the TPU v5e's table
      from benchmarks/PERF_NOTES.md, marked as a TPU's reference;
- 22. prints a `kernels` JSON line (eight entries: `rced_stack` in float32
+ 22. prints a `kernels` JSON line (ten entries: `rced_stack` in float32
      and in bf16, each with its "dtype", the bf16 `rced_stack` the wgmma
      kernel with conv_layer_bf16's time as `mma_sync_ms`, the edge kernels
      `rced_first` and `rced_proj` (phase 7c; launches phase 4's), then
-     `blocked_dw` in float32 and in bf16, `freq_conv` and
-     `freq_conv_stack`; the float32 `rced_stack`'s
+     `blocked_dw` in float32 and in bf16, `freq_conv`,
+     `freq_conv_stack`, `bn_chain` and `proj_train`, the last two with
+     their launches by path; the float32 `rced_stack`'s
      launches are the serving path's and the evaluation path's, each also
      by path, and its max_abs_err covers phases 6, 7 and 15; the bf16
      `blocked_dw`'s launches are the host loader's (11a) and both device
@@ -398,11 +407,20 @@ def chain_launches() -> tuple:
             bn_chain.launches_grad_apply)
 
 
+def proj_launches() -> tuple:
+    """`ops.proj_train`'s launch counts: forward, dX, dW."""
+    from fullycnnspeechenhancement_torch.ops import proj_train
+
+    return proj_train.launches_fwd, proj_train.launches_dx, proj_train.launches_dw
+
+
 def reset_chain_launches() -> None:
-    from fullycnnspeechenhancement_torch.ops import bn_chain
+    """Sets `ops.bn_chain`'s and `ops.proj_train`'s launch counts to 0."""
+    from fullycnnspeechenhancement_torch.ops import bn_chain, proj_train
 
     bn_chain.launches_moments = bn_chain.launches_apply = bn_chain.launches_grad_sums = 0
     bn_chain.launches_grad_apply = 0
+    proj_train.launches_fwd = proj_train.launches_dx = proj_train.launches_dw = 0
 
 
 # each training path's `ops.bn_chain` launches (all four stages), for the
@@ -415,7 +433,7 @@ def check_chain_launches(what: str, launches: tuple, n_bn: int, steps: int, vali
     besides the validation passes of `validations` (`timed_validation`'s
     entries), and each of those ran the forward's two stages (moments,
     apply) once a BN layer a batch and no backward stage."""
-    for epoch, _, _, chain in validations:
+    for epoch, _, _, chain, _ in validations:
         m, a, gs, ga = chain
         if m != a or m < n_bn or m % n_bn or gs or ga:
             raise AssertionError(f"{what}: validation after epoch {epoch} launched bn_chain {chain} (moments, "
@@ -425,6 +443,30 @@ def check_chain_launches(what: str, launches: tuple, n_bn: int, steps: int, vali
         raise AssertionError(f"{what}: bn_chain launched {launches} (moments, apply, grad sums, grad apply) in "
                              f"{steps} steps besides validation, expected {n_bn * steps} each")
     CHAIN_LAUNCHES[what] = sum(launches)
+
+
+# each training path's `ops.proj_train` launches (all three kernels), for
+# the `kernels` line
+PROJ_LAUNCHES = {}
+
+
+def check_proj_launches(what: str, launches: tuple, steps: int, bf16: bool, validations=()) -> None:
+    """Raise unless a bf16 path launched `ops.proj_train`'s forward, dX and
+    dW once a step besides the validation passes of `validations`, and
+    each of those the forward alone, once a batch; and unless a float32
+    path (the projection on cuDNN) launched none."""
+    for epoch, _, _, _, proj in validations:
+        fwd, dx, dw = proj
+        if dx or dw or (fwd < 1 if bf16 else fwd):
+            raise AssertionError(f"{what}: validation after epoch {epoch} launched proj_train {proj} (forward, "
+                                 f"dX, dW), expected ({'k >= 1' if bf16 else 0}, 0, 0)")
+        launches = tuple(n - v for n, v in zip(launches, proj))
+    want = (steps,) * 3 if bf16 else (0, 0, 0)
+    if steps < 1 or tuple(launches) != want:
+        raise AssertionError(f"{what}: proj_train launched {tuple(launches)} (forward, dX, dW) in {steps} steps "
+                             f"besides validation, expected {want}")
+    if bf16:
+        PROJ_LAUNCHES[what] = sum(launches)
 
 
 def check_close(name, got, ref, rtol, atol) -> float:
@@ -1297,16 +1339,18 @@ def time_steps(trainers: dict, batch) -> dict:
 @contextlib.contextmanager
 def timed_validation(validations: list):
     """Within the block, each `Trainer.validate` appends (epoch, seconds,
-    results, `ops.bn_chain`'s launches within it) to `validations`."""
+    results, `ops.bn_chain`'s launches within it, `ops.proj_train`'s) to
+    `validations`."""
     from fullycnnspeechenhancement_torch.train import trainer as trainer_mod
 
     real_validate = trainer_mod.Trainer.validate
 
     def timed_validate(self, loader, epoch, log=None):
-        v0, c0 = time.perf_counter(), chain_launches()
+        v0, c0, p0 = time.perf_counter(), chain_launches(), proj_launches()
         out = real_validate(self, loader, epoch, log)
         chain = tuple(n - n0 for n, n0 in zip(chain_launches(), c0))
-        validations.append((epoch, time.perf_counter() - v0, out, chain))
+        proj = tuple(n - n0 for n, n0 in zip(proj_launches(), p0))
+        validations.append((epoch, time.perf_counter() - v0, out, chain, proj))
         return out
 
     trainer_mod.Trainer.validate = timed_validate
@@ -1369,6 +1413,7 @@ def run_training(dev, tmp: str, rate: float):
     if launches != n_dw * steps:
         raise AssertionError(f"blocked_dw launched {launches} times in {steps} steps, expected {n_dw * steps}")
     check_chain_launches("training main path", chain, n_bn, steps, validations)
+    check_proj_launches("training main path", proj_launches(), steps, False, validations)
     log(f"training main path: bn_chain launches {chain} (moments, apply, grad sums, grad apply)")
     if not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError("a logged loss is not finite")
@@ -1616,6 +1661,8 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
                              f"{launches32} float32 times in {steps} steps, expected {n_dw * steps}, 0 and 0")
     check_chain_launches("bf16 training main path", chain, sum(spec.use_norm for spec in model.layers), steps,
                          validations)
+    check_proj_launches("bf16 training main path", proj_launches(), steps, True, validations)
+    log(f"bf16 training main path: proj_train launches {proj_launches()} (forward, dX, dW)")
     if not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError("bf16: a logged loss is not finite")
     files = sorted(os.listdir(trainer.ckpt.dir))
@@ -1914,6 +1961,122 @@ def run_bn_chain(dev, B: int = 64, T: int = 384, real_t: int = 281, reps: int = 
         "library": "none: no single PyTorch call computes the chain",
         "at": f"V2's 15 BN layers at {B} x {T} frames, batch-max mask of {real_t}, summed",
         "max_rel_err": worst,
+    }
+
+
+def run_proj_train(dev, B: int = 64, T: int = 384, reps: int = 20) -> dict:
+    """Phase 11e: `ops.proj_train` alone at the training cell's shape (V2's
+    projection, C = 10, B x T = 64 x 384 frames, bf16): the forward, dX,
+    dW and db against the plain projection (`proj_plain`) in float64 on
+    the same bf16 values within the card tests' PROJ_TOL (raises on a
+    miss); then each kernel's device time (CUDA events around calls
+    queued behind a spin kernel, as phase 11d; dW with its partial sums'
+    kernel) beside the three passes' least time at the data sheet's rates
+    (the bytes of `portbench`'s `proj_train_roofline` over every frame),
+    the forward and backward under autograd beside cuDNN's
+    (`proj_plain` in bf16, the route before the kernels: `library_ms`).
+    Returns the `kernels` line's entry."""
+    from fullycnnspeechenhancement_torch.ops import proj_train
+
+    found = importlib.util.spec_from_file_location(
+        "proj_tests", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "test_torch_proj_train.py"))
+    card = importlib.util.module_from_spec(found)
+    sys.path.insert(0, os.path.dirname(found.origin))
+    try:
+        found.loader.exec_module(card)
+    finally:
+        sys.path.pop(0)
+
+    t0 = time.perf_counter()
+    f_dim = card.F_DIM
+    z, w, b, dy = card._case("FullyCNNV2", B, T, torch.bfloat16, dev, seed=25)
+    got = card._grads(proj_train.proj_train, z, w, b, dy)
+    ref = card._grads(proj_train.proj_plain, z, w, b, dy, torch.float64)
+    errs = card.proj_errors(got, ref)
+    rel = {k: ((g.double() - r).abs().max() / r.abs().max()).item()
+           for k, g, r in zip(("y", "dz", "dw", "db"), got, ref)}
+    log(f"proj_train at {B} x {T}, V2, bf16: against the float64 plain projection, largest error over the bound "
+        f"(1 = PROJ_TOL {card.PROJ_TOL}) {errs}, max|got - ref| / max|ref| {rel}")
+    if any(not v <= 1.0 for v in errs.values()):
+        raise AssertionError(f"proj_train past PROJ_TOL of the float64 plain projection: {errs}")
+    if got[1].reshape(B, T, -1, 10)[:, :, f_dim:].any():
+        raise AssertionError("proj_train: dX's pad band is not 0")
+    dims = proj_train._checked(z, w, b, f_dim)
+    dyc = dy.contiguous()
+
+    def both(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (z, w, b)]
+        return torch.autograd.grad(fn(*leaves, f_dim), leaves, dy)
+
+    groups = {
+        "forward": (lambda: proj_train.forward(z, w, b, dims), (1, 0, 0)),
+        "dx": (lambda: proj_train.grad_input(dyc, w, dims), (0, 1, 0)),
+        "dw": (lambda: proj_train.grad_weight(z, dyc, dims), (0, 0, 1)),
+        "autograd": (lambda: both(proj_train.proj_train), (1, 1, 1)),
+        "cudnn_forward": (lambda: proj_train.proj_plain(z, w, b, f_dim), (0, 0, 0)),
+        "cudnn_autograd": (lambda: both(proj_train.proj_plain), (0, 0, 0)),
+    }
+    busy, host = {}, {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for label, (fn, launched) in groups.items():
+        fn()
+        for cycles in (10**7, 10**8, 10**9, 10**10):
+            torch.cuda.synchronize()
+            before = proj_launches()
+            torch.cuda._sleep(cycles)
+            start.record()
+            t1 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host[label] = (time.perf_counter() - t1) * 1e3 / reps
+            ahead = not start.query()
+            end.record()
+            torch.cuda.synchronize()
+            moved = tuple(n - n0 for n, n0 in zip(proj_launches(), before))
+            if moved != tuple(k * reps for k in launched):
+                raise AssertionError(f"proj_train {label}: launch counters moved {moved}, expected {launched} x {reps}")
+            if ahead:
+                busy[label] = start.elapsed_time(end) / reps
+                break
+        else:
+            raise AssertionError(f"proj_train {label}: the host took {host[label]:.3f} ms a call, longer than the "
+                                 "longest spin")
+    from portbench import peaks, work
+    from portbench.metrics import proj_train_roofline
+    from portbench.reference.specs import MODELS
+
+    flop, nbytes = proj_train_roofline.least_work(MODELS["FullyCNNV2"], B, T, 2)
+    least_ms = work.roofline_s(flop, nbytes, peaks.PEAK_FLOP_S["bfloat16"], peaks.PEAK_BYTES_S) * 1e3
+    kernel_ms = busy["forward"] + busy["dx"] + busy["dw"]
+    plan = proj_train.dw_plan(dims.rows, dims.positions * dims.channels,
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+    log("proj_train " + json.dumps({"device_ms": busy, "host_ms": host, "least_ms": least_ms,
+                                    "least_bound_by": "bytes" if nbytes / peaks.PEAK_BYTES_S
+                                    > flop / peaks.PEAK_FLOP_S["bfloat16"] else "operations",
+                                    "share_of_least": least_ms / kernel_ms, "dw_plan": plan._asdict()}))
+    log(f"proj_train, V2 at {B} x {T} frames, bf16: forward {busy['forward']:.4f} ms, dX {busy['dx']:.4f} ms, dW "
+        f"{busy['dw']:.4f} ms (least time of the three {least_ms:.4f} ms, {100 * least_ms / kernel_ms:.1f}%); "
+        f"forward and backward under autograd {busy['autograd']:.4f} ms of device time against cuDNN's "
+        f"{busy['cudnn_autograd']:.4f} ms (forward {busy['cudnn_forward']:.4f} ms)")
+    phase("proj_train alone", t0)
+    return {
+        "name": "proj_train",
+        "dtype": "bfloat16",
+        "route": "cuda",
+        "source": "fullycnnspeechenhancement_torch/ops/csrc/proj_train.cu",
+        "replaces": None,
+        "ms": kernel_ms,
+        "device_ms_by_kernel": {k: busy[k] for k in ("forward", "dx", "dw")},
+        "autograd_device_ms": busy["autograd"],
+        "plain_ms": None,
+        "plain": "proj_plain is cuDNN's conv itself (library_ms); the float64 check above runs it",
+        "bound_ms": least_ms,
+        "bound_by": "bytes",
+        "bound_note": "x and dy read, y and dX written once each pass in bf16, at 3.35 TB/s (every frame)",
+        "library_ms": busy["cudnn_autograd"],
+        "library": "F.conv2d (cuDNN, bf16) on the unblocked view, forward and backward under autograd",
+        "at": f"V2's projection (C = 10) at {B} x {T} frames",
+        "max_rel_err": max(rel.values()),
     }
 
 
@@ -2658,6 +2821,7 @@ def run_device_cache(dev, tmp: str, ctx: dict) -> dict:
         if sum(ks) != steps:
             raise AssertionError(f"device cache {tag}: dispatches of {ks} steps, {steps} steps logged")
         check_chain_launches(f"device cache {tag}", chain, n_bn, steps, validations)
+        check_proj_launches(f"device cache {tag}", proj_launches(), steps, True, validations)
         log(f"device cache {tag}: bn_chain launches {chain} (moments, apply, grad sums, grad apply)")
         if not all(np.isfinite(r["loss"]) for r in rows):
             raise AssertionError(f"device cache {tag}: a logged loss is not finite")
@@ -2975,6 +3139,7 @@ def _dp_rank(rank: int, init_method: str, inis: dict, out_dir: str, device: str)
             out[tag] = {
                 "float32": blocked_dw.launches, "bf16_wgmma": blocked_dw.launches_bf16,
                 "bf16_mma_sync": blocked_dw.launches_bf16_mma_sync, "bn_chain": list(chain_launches()),
+                "proj_train": list(proj_launches()),
                 "wall_s": time.perf_counter() - t0,
                 "steps": trainer._host_step, "rows": trainer.config.train.batch_size // DP_RANKS,
             }
@@ -3092,6 +3257,7 @@ def run_data_parallel(dev, tmp: str, corpus: dict, single_last: str) -> dict:
             raise AssertionError(f"DP float32 rank {r}: {got}, expected {n_dw * steps} float32 launches in "
                                  f"{steps} steps")
         check_chain_launches(f"DP float32 rank {r}", tuple(got["bn_chain"]), n_bn, steps)
+        check_proj_launches(f"DP float32 rank {r}", tuple(got["proj_train"]), steps, False)
     losses = np.array([x["loss"] for x in rows])
     ref_losses = np.array([x["loss"] for x in ref_rows])
     if steps != EPOCHS * N_UTTS // B_TRAIN or len(ref_losses) != steps:
@@ -3119,6 +3285,7 @@ def run_data_parallel(dev, tmp: str, corpus: dict, single_last: str) -> dict:
             raise AssertionError(f"DP bf16 rank {r}: {got}, expected {n_dw * steps16} wgmma launches in "
                                  f"{steps16} steps")
         check_chain_launches(f"DP bf16 rank {r}", tuple(got["bn_chain"]), n_bn, steps16)
+        check_proj_launches(f"DP bf16 rank {r}", tuple(got["proj_train"]), steps16, True)
     losses16 = np.array([x["loss"] for x in rows16])
     ref16 = np.array([x["loss"] for x in ref16[:steps16]])
     if steps16 != N_UTTS // B_TRAIN or len(ref16) != steps16:
@@ -3688,6 +3855,7 @@ def main() -> int:
         dw_entry, last_checkpoint, train_ctx = run_training(dev, tmp, mma_rate)
         dw_bf16_entry = run_training_bf16(dev, tmp, train_ctx, rate_bf16, rate_wgmma)
         chain_bn_entry = run_bn_chain(dev)
+        proj_entry = run_proj_train(dev)
         t0 = time.perf_counter()
         probe_path = run_probe_path(dev, mma_rate)
         phase("probe path", t0)
@@ -3790,8 +3958,10 @@ def main() -> int:
     }
     chain_bn_entry["launches_by_path"] = dict(CHAIN_LAUNCHES)
     chain_bn_entry["launches"] = sum(CHAIN_LAUNCHES.values())
+    proj_entry["launches_by_path"] = dict(PROJ_LAUNCHES)
+    proj_entry["launches"] = sum(PROJ_LAUNCHES.values())
     entries = [stack_entry, stack_bf16_entry, *edge_entries, dw_entry, dw_bf16_entry, conv_entry, chain_entry,
-               chain_bn_entry]
+               chain_bn_entry, proj_entry]
     for e in entries:
         e["kernel_ms"] = e["ms"]
     kernels = {"kernels": entries}

@@ -23,8 +23,9 @@ Semantics kept relative to `ModelDef.apply`:
   * training-mode BN moments over (B, T, real F) per canonical channel
     (the in-block position axis folded), masked by `frame_mask`;
   * the skip add after BN and before the ReLU, V3's residual after it;
-  * the final (1, 129) projection on the unblocked layout (its taps span
-    every block).
+  * the final (1, 129) projection, whose taps span every block, as one
+    Toeplitz band over the blocked layout's (bin, channel) positions, its
+    output [B, T, F, 1] returned as it is.
 
 Activations keep the JAX layout [B, T, NB, fb*C] at this module's
 functions; the convs see channels-last NCHW views of them.  With
@@ -33,7 +34,11 @@ functions; the convs see channels-last NCHW views of them.  With
 layer's chain after its conv (bias, BN, skip, ReLU, residual, pad band) is
 `ops/bn_chain.py::chain_plain`; a training-mode forward runs the BN
 layers' chains through `ops/bn_chain.py::bn_chain`, CUDA kernels forward
-and backward on the card and `chain_plain` on the CPU.
+and backward on the card and `chain_plain` on the CPU.  The projection
+takes one branch, on the compute dtype: bf16 goes through
+`ops/proj_train.py::proj_train` (CUDA kernels forward and backward on the
+card, `proj_plain` on the CPU); float32 and float64 through `proj_plain`,
+cuDNN's conv on the card in full float32.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from fullycnnspeechenhancement_torch.models.blocks import tf_same_pads
 from fullycnnspeechenhancement_torch.models.rced import ModelDef
 from fullycnnspeechenhancement_torch.ops.blocked_dw import blocked_freq_conv, conv_nhwc
 from fullycnnspeechenhancement_torch.ops.bn_chain import bn_chain, chain_plain, make_batch
+from fullycnnspeechenhancement_torch.ops.proj_train import proj_plain, proj_train
 
 FB_DEFAULT = 8
 
@@ -130,24 +136,14 @@ def apply_blocked(
     dt = x.dtype
     batch = make_batch(B, T, F, fb, dt, x.device, is_training=is_training, frame_mask=frame_mask)
 
+    *inner, last = model.layers
+    # every variant ends with the (1, F) projection, without BN or ReLU
+    assert last.kernel[0] == 1 and last.kernel[1] >= F and not (last.use_norm or last.use_act), last
     z = block_input(x, fb)
     taps, new_state = {}, {}
-    for spec in model.layers:
+    for spec in inner:
         p = params[spec.name]
-        kh, kw = spec.kernel
-
-        if kw >= F:  # the (1, 129) projection: run unblocked
-            cin = z.shape[3] // fb
-            xn = unblock_output(z, F, cin)
-            y = conv_nhwc(xn, p["w"].to(dt).permute(2, 3, 1, 0), tf_same_pads(spec.kernel))
-            y = y + p["b"].to(dt)
-            # the final layer of every variant has no BN
-            if spec.use_act:
-                y = torch.relu(y)
-            z = block_input(y, fb)
-            taps[spec.name] = z
-            continue
-
+        kh = spec.kernel[0]
         wb, dc = _block_weight(p["w"], fb)
         kb = wb.shape[1]
         if kh == 1 and dw_pallas:
@@ -171,7 +167,10 @@ def apply_blocked(
         taps[spec.name] = y
         z = y
 
-    out = unblock_output(z, F, model.layers[-1].out_ch)
+    # the projection, on the blocked layout: its taps span every block
+    project = proj_train if dt == torch.bfloat16 else proj_plain
+    p = params[last.name]
+    out = project(z, p["w"].to(dt), p["b"].to(dt), F)
     # eval mode and layers without BN keep their incoming state
     for name, s in state.items():
         if name not in new_state:
