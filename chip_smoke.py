@@ -5,7 +5,9 @@
 
 Run from the root of a checkout on a machine with one CUDA card (written
 for an H100) and `nvcc`.  It imports only the port
-(`fullycnnspeechenhancement_torch`), never JAX, and in order:
+(`fullycnnspeechenhancement_torch`) and the benchmark's `portbench` (its
+audio generators, its trace reader and its work counts), never JAX, and
+in order:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels for sm_90a, one `nvcc` per source, started
@@ -15,10 +17,11 @@ for an H100) and `nvcc`.  It imports only the port
      decode, resample, mixing, PESQ) and a probe of mma.sync's TF32 and
      bf16 rates and of wgmma's bf16 rate (MMA_RATE_SRC), measured once here
      and used by phases 7, 7b, 11 and 11c (both kernels issue mma.sync in
-     3xTF32, conv_layer_bf16 mma.sync in bf16, the bf16 stack and dW
-     kernels wgmma); and holds wgmma's K-major descriptors without swizzle,
-     as the bf16 stack kernel builds them, against their model
-     (WG_PROBE_CASES: overlapping and pad blocks among them), exactly;
+     3xTF32, the bf16 stack and dW kernels wgmma, the bf16 stack's edge
+     warp mma.sync in bf16); and holds wgmma's K-major descriptors
+     without swizzle, as the bf16 stack kernel builds them, against their
+     model (WG_PROBE_CASES: overlapping and pad blocks among them),
+     exactly;
 
   The serving path (the fused inference kernel, `rced_stack`):
   3. builds two V2 inference engines at full width from one npz of random
@@ -42,19 +45,17 @@ for an H100) and `nvcc`.  It imports only the port
      device-busy time (from torch.profiler) through both engines;
  7b. the stack's bf16 operand mode, which `fused_inference_forward(dtype=
      "bfloat16")` reaches (as in JAX, no engine or config routes to it):
-     the three requests through it with both bf16 launch counts set to 0
-     just before and read just after (3 of the wgmma kernel, 0 of
-     conv_layer_bf16), each output within 0.05 * max of the float32 fused
-     forward's; the wgmma kernel against its plain bf16 mode and against
-     conv_layer_bf16 (`stack_forward_mma_sync`) at the requests' B=1 shapes,
-     for V1/V2/V3 at B=2, T=70 and T=45 and at 64 x 8 s (median difference
-     within 1e-6 of max|plain|, none past 2^-6 of it: see BF16_STACK_*),
-     each launch repeated bit for bit, one inner layer at rtol 1e-4, atol
-     1e-5 * max|plain| (both kernels); its time at 64 x 8 s beside
-     conv_layer_bf16, the 3xTF32 kernel, the plain bf16 mode and cuDNN's
-     stack in bf16, the bf16 bound, its padded products and the floor
-     wgmma's rate sets, conv_layer_bf16's mma.sync floor, and both launch
-     plans;
+     the three requests through it with both launch counts set to 0 just
+     before and read just after (3 of the wgmma kernel, 0 of the float32
+     one), each output within 0.05 * max of the float32 fused forward's;
+     the wgmma kernel against its plain bf16 mode at the requests' B=1
+     shapes, for V1/V2/V3 at B=2, T=70 and T=45 and at 64 x 8 s (median
+     difference within 1e-6 of max|plain|, none past 2^-6 of it: see
+     BF16_STACK_*), each launch repeated bit for bit, one inner layer at
+     rtol 1e-4, atol 1e-5 * max|plain|; its time at 64 x 8 s beside the
+     3xTF32 kernel, the plain bf16 mode and cuDNN's stack in bf16, the
+     bf16 bound, its padded products, the floor wgmma's and the edge
+     warp's mma.sync rates set, and its launch plan;
  7c. the fused forward's edge kernels (`ops/csrc/rced_edges.cu`: layer 1
      and the (1, 129) projection, float32 on the CUDA cores) at B=1,
      T=25,999 (a 416 s call), T=124 (2 s) and 64 x 8 s: each against its
@@ -107,8 +108,8 @@ for an H100) and `nvcc`.  It imports only the port
      profile's device cache), one epoch
      on phase 8's corpus with validation after it, the bf16 dW kernels'
      launch counts set to 0 just before and read just after: 14 per step
-     (8 steps) through the wgmma kernel, none through the bf16 mma.sync
-     one, no float32 launch, every loss finite, the checkpoint written,
+     (8 steps) through the wgmma kernel, no float32 launch, every loss
+     finite, the checkpoint written,
      params float32, the validation pass's scores finite;
  11b. bf16 parity: two trainers from phase 9's initial state on its 4
      batches under bf16, with and without dw_pallas: losses within rtol
@@ -118,12 +119,11 @@ for an H100) and `nvcc`.  It imports only the port
  11c. the bf16 dW kernel (wgmma, fed by TMA) against its plain version
      for V2's 14 layers at 64 x 8 s and at B=3, T=37 (rtol 1e-4, atol
      1e-4 * max|plain|), each launch repeated bit for bit, no launch of
-     the bf16 mma.sync kernel; its time over the 14 layers beside that
-     kernel (`blocked_dw_mma_sync`, held against it within DW_TOL), the
-     3xTF32 kernel's (phase 11), its plain version and `conv2d_weight` on
-     bf16 inputs, its launch plan per layer (tile, ring of stages, splits,
-     cluster), its bf16 bound (bytes), the floor wgmma's rate (phase 2)
-     sets on the products it computes, and the mma.sync design's floor;
+     the 3xTF32 kernel; its time over the 14 layers beside the 3xTF32
+     kernel's (phase 11), its plain version and `conv2d_weight` on bf16
+     inputs, its launch plan per layer (tile, ring of stages, splits,
+     cluster), its bf16 bound (bytes) and the floor wgmma's rate (phase 2)
+     sets on the products it computes;
      the bf16 train step with dw_pallas on and off beside phase 11's
      float32 step, and one bf16 dispatch's device-busy time;
  11d. `ops.bn_chain` alone on V2's 15 BN layers in bf16 at 64 x 384
@@ -210,9 +210,9 @@ for an H100) and `nvcc`.  It imports only the port
      steps_per_call 8) plus dw_pallas, the bf16 dW kernels' launch counts
      set to 0 just before and read just after each run: (a) the resident
      cache, two epochs with validation after the second: 14 launches a
-     step through the wgmma kernel, none through the bf16 mma.sync one,
-     none float32; two 8-step dispatches; every loss finite, the
-     checkpoints written, the validation scores finite; one cached
+     step through the wgmma kernel, none float32; two 8-step dispatches;
+     every loss finite, the checkpoints written, the validation scores
+     finite; one cached
      steps_per_call=8 dispatch's idle share under the profiler; (b) the
      rotating cache over the corpus listed three times, its budget set for
      3 shards of at least 8 batches of one bucket each, spilled under the
@@ -276,8 +276,8 @@ for an H100) and `nvcc`.  It imports only the port
      Trainer's PRNGKey(0) init, tests/fixtures/
      quality_v2_init_jax_prngkey0.npz) and again from the port's own init,
      every kernel's launch counts set to 0 just before each run and read
-     just after: 14 `dw_wgmma_kernel` launches a step and none of the bf16
-     mma.sync or float32 dW kernels under bf16, 14 3xTF32 `blocked_dw`
+     just after: 14 `dw_wgmma_kernel` launches a step and none of the
+     float32 dW kernel under bf16, 14 3xTF32 `blocked_dw`
      launches a step and no bf16 one in float32, and one float32
      `rced_stack` launch a scoring call (4 held-out utterances, untrained
      and trained: 8), none bf16; every run scores PESQ with `p862-native`
@@ -290,7 +290,7 @@ for an H100) and `nvcc`.  It imports only the port
      from benchmarks/PERF_NOTES.md, marked as a TPU's reference;
  22. prints a `kernels` JSON line (ten entries: `rced_stack` in float32
      and in bf16, each with its "dtype", the bf16 `rced_stack` the wgmma
-     kernel with conv_layer_bf16's time as `mma_sync_ms`, the edge kernels
+     kernel, the edge kernels
      `rced_first` and `rced_proj` (phase 7c; launches phase 4's), then
      `blocked_dw` in float32 and in bf16, `freq_conv`,
      `freq_conv_stack`, `bn_chain` and `proj_train`, the last two with
@@ -321,6 +321,7 @@ import time
 
 import numpy as np
 import torch
+from portbench.gen import noise_recording, speech_bank
 
 # H100 SXM data-sheet peaks (dense): float32 without tensor cores, TF32
 # and bf16 on them.
@@ -519,18 +520,6 @@ def randomized_bn(bn, seed):
     return out
 
 
-def speech_like(rng, seconds, sr=8000):
-    """Harmonics of a wandering pitch under a syllable-rate envelope, plus
-    white noise."""
-    t = np.arange(int(seconds * sr)) / sr
-    f0 = 140 + 30 * np.sin(2 * np.pi * 0.7 * t)
-    phase = 2 * np.pi * np.cumsum(f0) / sr
-    voiced = sum(np.sin(k * phase) / k for k in range(1, 12))
-    env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.5 * t) ** 2
-    sig = 0.15 * env * voiced + 0.05 * rng.standard_normal(len(t))
-    return sig.astype(np.float32)
-
-
 def inner_stack_cudnn(folded, x):
     """The inner layers one cuDNN conv at a time, on the folded weights
     (`fold_bn_inference`'s list, whose first entry is layer 1 and whose
@@ -553,36 +542,30 @@ def inner_stack_cudnn(folded, x):
 
 
 def device_busy_ms(fn, reps: int, top: int = 0):
-    """(host ms, device-busy ms, device events) per call of `fn` over
-    `reps` calls after one warm-up, under torch.profiler: busy is the
-    summed duration of the device's own events (kernels, copies, memsets;
-    one stream, so they do not overlap), host time the clock around the
-    calls up to a synchronize.  Busy is None when the profiler saw no
-    device event.  With `top`, logs the `top` device events by summed
-    time per call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """(host ms, device-busy ms, device operations) per call of `fn` over
+    `reps` calls after one warm-up, from `portbench.devtrace`'s traced
+    window: busy is the union of the device's own operations (kernels,
+    copies, memsets), host time the clock around the calls up to a
+    synchronize.  Busy is None when the trace saw no device operation.
+    With `top`, logs the `top` device operations by time per call."""
+    from portbench import devtrace
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / reps
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not device:
+    window = devtrace.Window()
+    window.start()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    window.stop()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    trace = window.summary()
+    if trace is None or not trace.by_kernel:
         return host_ms, None, 0
-    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps
-    by_name = {}
-    for e in device:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        log(f"  device {us / 1e3 / reps:9.3f} ms ({100 * us / 1e3 / reps / busy_ms:4.1f}%) "
-            f"in {n / reps:5.0f} events: {name[:100]}")
-    return host_ms, busy_ms, len(device) / reps
+    busy_ms = trace.busy_s * 1e3 / reps
+    for name, sec in trace.breakdown(top)["device_ops"] if top else []:
+        log(f"  device {sec * 1e3 / reps:9.3f} ms ({100 * sec * 1e3 / reps / busy_ms:4.1f}%): {name[:100]}")
+    return host_ms, busy_ms, sum(v["launches"] for v in trace.by_span.values()) / reps
 
 
 def layout_conversions(fn, names=("nchwToNhwc", "nhwcToNchw"), top: int = 12):
@@ -627,14 +610,15 @@ def stack_work(packed, B, T):
     """(FLOP, bytes) the inner stack needs on [B, c_in, T, 129]: products
     only against real inputs (tap j of a layer with kw taps meets
     129 - |j - lo| bins; the rest fall on the zero halo, as `conv_work`
-    counts them), each input read once, each output and weight moved
-    once."""
+    counts them), each input read once, each output and folded float32
+    weight and bias moved once."""
     macs = 0
     for lay in packed.layers:
         lo = (lay.kw - 1) // 2
         macs += lay.cin * lay.cout * sum(129 - abs(j - lo) for j in range(lay.kw))
     flop = 2.0 * B * T * macs
-    nbytes = 4.0 * B * T * 129 * (packed.c_in + packed.c_out) + 4.0 * packed.weights.numel()
+    weights = sum(w.numel() + b.numel() for w, b in packed.folded)
+    nbytes = 4.0 * B * T * 129 * (packed.c_in + packed.c_out) + 4.0 * weights
     return flop, nbytes
 
 
@@ -666,9 +650,9 @@ def run_serving(dev, tmp: str, mma_rate: float, rate_bf16: float, rate_wgmma: fl
 
     # -- 4. the main path ------------------------------------------------
     rng = np.random.default_rng(0)
-    requests = [speech_like(rng, s) for s in (1.5, 6.0, 30.0)]
+    requests = [speech_bank(rng, s).astype(np.float32) for s in (1.5, 6.0, 30.0)]
     wav_in = os.path.join(tmp, "noisy.wav")
-    write_wav(wav_in, speech_like(rng, 3.0), 8000)
+    write_wav(wav_in, speech_bank(rng, 3.0), 8000)
     rced_stack.launches = 0
     rced_edges.launches_first = rced_edges.launches_proj = 0
     outs = []
@@ -917,16 +901,12 @@ def run_edges(dev, fused, launches) -> list:
     return entries
 
 
-def against_mma_sync(name, pk, x, got) -> float:
-    """Holds the wgmma kernel's output `got` on `x` against conv_layer_bf16
-    (`stack_forward_mma_sync`, BF16_STACK_*) and a second launch of the
-    wgmma kernel (bit for bit); returns the largest difference from
-    conv_layer_bf16."""
+def assert_repeats(name, pk, x, got) -> None:
+    """A second launch of the stack kernel on `x` equals `got` bit for bit."""
     from fullycnnspeechenhancement_torch.ops import rced_stack
 
     if not torch.equal(rced_stack.stack_forward(pk, x), got):
-        raise AssertionError(f"{name}: a second launch of the wgmma kernel differs")
-    return check_bf16_stack(f"{name} vs conv_layer_bf16", got, rced_stack.stack_forward_mma_sync(pk, x))
+        raise AssertionError(f"{name}: a second launch of the kernel differs")
 
 
 def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk32) -> dict:
@@ -938,11 +918,12 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk
     the float32 fused forward's (the JAX package's bound for its bf16
     mode), and the kernel at each of those B=1 shapes against its plain
     bf16 mode (check_bf16_stack).  Then the same for V1/V2/V3 at
-    B=2, T=70 and T=45 and at 64 x 8 s (check_bf16_stack), one inner layer
-    at float32's tolerance, and its time at 64 x 8 s beside the float32
-    kernel, the plain bf16 mode and cuDNN's stack in bf16, its bf16 bound,
-    mma.sync's bf16 floor and the bf16 instance's launch plan (its
-    occupancy from the CUDA calculator).  Returns its `kernels` entry."""
+    B=2, T=70 and T=45 and at 64 x 8 s (check_bf16_stack), each launch
+    repeated bit for bit, one inner layer at float32's tolerance, and its
+    time at 64 x 8 s beside the float32 kernel, the plain bf16 mode and
+    cuDNN's stack in bf16, its bf16 bound, the floor wgmma's and the edge
+    warp's mma.sync rates set and its launch plan (its occupancy from the
+    CUDA calculator).  Returns its `kernels` entry."""
     from fullycnnspeechenhancement_torch.models import get_model
     from fullycnnspeechenhancement_torch.models.blocks import conv2d_same
     from fullycnnspeechenhancement_torch.models.rced import ConvSpec, ModelDef
@@ -955,17 +936,15 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk
         wav = torch.zeros(1, fused._pad_len(len(sig)), device=dev)
         wav[0, : len(sig)] = torch.as_tensor(sig, device=dev)
         mags.append(fused.ext(wav, torch.tensor([len(sig)], dtype=torch.int32, device=dev)))
-    if not rced_stack.takes_wgmma(pk):
-        raise AssertionError("V2's bf16 pack does not take the wgmma kernel")
-    rced_stack.launches_bf16 = rced_stack.launches_bf16_wgmma = 0
+    rced_stack.launches = rced_stack.launches_bf16_wgmma = 0
     outs = [rced_stack.fused_inference_forward(model, params, bn, mag, packed=pk, dtype="bfloat16")
             for mag in mags]
     torch.cuda.synchronize()
-    launches, launches_old = rced_stack.launches_bf16_wgmma, rced_stack.launches_bf16
-    log(f"stack bf16 main path: rced_stack bf16 launches {launches} (wgmma kernel), {launches_old} (conv_layer_bf16)")
-    if launches != len(mags) or launches_old != 0:
-        raise AssertionError(f"rced_stack bf16 launched the wgmma kernel {launches} times and conv_layer_bf16 "
-                             f"{launches_old} times for {len(mags)} calls, expected {len(mags)} and 0")
+    launches, launches32 = rced_stack.launches_bf16_wgmma, rced_stack.launches
+    log(f"stack bf16 main path: rced_stack bf16 launches {launches} (wgmma kernel), {launches32} float32")
+    if launches != len(mags) or launches32 != 0:
+        raise AssertionError(f"rced_stack bf16 launched the wgmma kernel {launches} times and the float32 one "
+                             f"{launches32} times for {len(mags)} calls, expected {len(mags)} and 0")
     max_err = 0.0
     for mag, out in zip(mags, outs):
         ref = rced_stack.fused_inference_forward(model, params, bn, mag, packed=pk32)
@@ -977,10 +956,9 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk
         y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
         got = rced_stack.stack_forward(pk, y1)
         e = check_bf16_stack(f"V2 B=1 T={mag.shape[1]} bf16", got, rced_stack.stack_forward_plain(pk, y1))
-        e_old = against_mma_sync(f"V2 B=1 T={mag.shape[1]}", pk, y1, got)
+        assert_repeats(f"V2 B=1 T={mag.shape[1]}", pk, y1, got)
         max_err = max(max_err, e)
-        log(f"kernel bf16 V2 B=1 T={mag.shape[1]}: max abs err vs plain bf16 {e:.3e}, vs conv_layer_bf16 "
-            f"{e_old:.3e}; repeats bit for bit")
+        log(f"kernel bf16 V2 B=1 T={mag.shape[1]}: max abs err vs plain bf16 {e:.3e}; repeats bit for bit")
 
     for name in ("FullyCNN", "FullyCNNV2", "FullyCNNV3"):
         m = get_model(name)
@@ -993,12 +971,12 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk
             y1 = torch.relu(conv2d_same(mag[:, None], *pkb.first[1:])).contiguous()
             got = rced_stack.stack_forward(pkb, y1)
             e = check_bf16_stack(f"{name} T={T} bf16", got, rced_stack.stack_forward_plain(pkb, y1))
-            e_old = against_mma_sync(f"{name} T={T}", pkb, y1, got)
+            assert_repeats(f"{name} T={T}", pkb, y1, got)
             f32 = rced_stack.stack_forward_plain(pkf, y1)
             if (got - f32).abs().max() > 0.05 * f32.abs().max():
                 raise AssertionError(f"{name} T={T}: bf16 stack past 0.05 * max of float32")
             max_err = max(max_err, e)
-            log(f"kernel bf16 {name} B=2 T={T}: max abs err vs plain bf16 {e:.3e}, vs conv_layer_bf16 {e_old:.3e}")
+            log(f"kernel bf16 {name} B=2 T={T}: max abs err vs plain bf16 {e:.3e}")
     one = ModelDef("one_layer", (ConvSpec("a", 19, (8, 5)), ConvSpec("b", 32, (1, 13)),
                                  ConvSpec("c", 1, (1, 129), use_norm=False, use_act=False)))
     p1, s1 = one.init(torch.Generator().manual_seed(3), device=dev)
@@ -1006,20 +984,16 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk
     x1 = torch.rand(2, 19, 45, 129, generator=torch.Generator().manual_seed(5)).to(dev)
     ref1 = rced_stack.stack_forward_plain(pk1, x1)
     e = check_close("one layer bf16", rced_stack.stack_forward(pk1, x1), ref1, 1e-4, 1e-5 * ref1.abs().max().item())
-    e_old = check_close("one layer bf16 conv_layer_bf16", rced_stack.stack_forward_mma_sync(pk1, x1), ref1, 1e-4,
-                        1e-5 * ref1.abs().max().item())
     max_err = max(max_err, e)
-    log(f"kernel bf16 one layer (kw 13, 19 -> 32 channels): max abs err vs plain bf16 {e:.3e} "
-        f"(conv_layer_bf16 {e_old:.3e})")
+    log(f"kernel bf16 one layer (kw 13, 19 -> 32 channels): max abs err vs plain bf16 {e:.3e}")
 
     B, T = 64, fused.ext.num_frames(8 * 8000)
     mag = torch.as_tensor(np.random.default_rng(7).random((B, T, 129), dtype=np.float32), device=dev)
     y1 = torch.relu(conv2d_same(mag[:, None], *pk.first[1:])).contiguous()
     got = rced_stack.stack_forward(pk, y1)
     e = check_bf16_stack(f"V2 B={B} T={T} bf16", got, rced_stack.stack_forward_plain(pk, y1))
-    e_old = against_mma_sync(f"V2 B={B} T={T}", pk, y1, got)
-    log(f"kernel bf16 V2 B={B} T={T}: max abs err vs plain bf16 {e:.3e}, vs conv_layer_bf16 {e_old:.3e}; "
-        f"repeats bit for bit")
+    assert_repeats(f"V2 B={B} T={T}", pk, y1, got)
+    log(f"kernel bf16 V2 B={B} T={T}: max abs err vs plain bf16 {e:.3e}; repeats bit for bit")
     max_err = max(max_err, e)
     f32 = rced_stack.stack_forward(pk32, y1)
     if (got - f32).abs().max() > 0.05 * f32.abs().max():
@@ -1028,13 +1002,11 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk
     folded16 = [(spec, w.to(torch.bfloat16), b.to(torch.bfloat16)) for spec, w, b in folded]
     y1_16 = y1.to(torch.bfloat16)
     del got, f32
-    # in turns: the wgmma kernel, conv_layer_bf16, the others, then both again
+    # in turns: the wgmma kernel, the others, then the kernel again
     kernel_ms = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
-    old_ms = cuda_ms(lambda: rced_stack.stack_forward_mma_sync(pk, y1), reps=20)
     f32_ms = cuda_ms(lambda: rced_stack.stack_forward(pk32, y1), reps=20)
     plain_ms = cuda_ms(lambda: rced_stack.stack_forward_plain(pk, y1), reps=3, warmup=1)
     cudnn_ms = cuda_ms(lambda: inner_stack_cudnn(folded16, y1_16), reps=10)
-    old_ms_2 = cuda_ms(lambda: rced_stack.stack_forward_mma_sync(pk, y1), reps=20)
     kernel_ms_2 = cuda_ms(lambda: rced_stack.stack_forward(pk, y1), reps=20)
     flop, nbytes = stack_work(pk, B, T)
     t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1044,21 +1016,15 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk
     # the wgmma tiles' products at wgmma's rate, the edge warp's at mma.sync's
     padded, by_wgmma, by_edge = rced_stack.wgmma_padded_product_ratio(pk)
     floor_ms = flop * (by_wgmma / rate_wgmma + by_edge / rate_bf16) / 1e12 * 1e3
-    old_plan = rced_stack.launch_plan(pk, rced_stack.card_blocks_per_sm(pk.smem_floats * 4, dev, "bfloat16"))
-    old_padded = old_plan.padded_product_ratio
-    old_floor_ms = flop * old_padded / (rate_bf16 * 1e12) * 1e3
     log(f"timing V2 inner stack bf16 at {B} x 8 s (T={T}): wgmma kernel {kernel_ms:.3f} / {kernel_ms_2:.3f} ms, "
-        f"conv_layer_bf16 (mma.sync) {old_ms:.3f} / {old_ms_2:.3f} ms ({old_ms / kernel_ms:.2f}x), 3xTF32 kernel "
-        f"{f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, cuDNN layer by layer in bf16 {cudnn_ms:.3f} ms")
+        f"3xTF32 kernel {f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, cuDNN layer by layer in bf16 "
+        f"{cudnn_ms:.3f} ms")
     log(f"bound bf16: {flop:.4e} FLOP -> {t_ops:.3f} ms at 989 TFLOP/s; {nbytes:.4e} B -> {t_bytes:.3f} ms "
         f"at 3.35 TB/s; wgmma kernel at {100 * bound_ms / kernel_ms:.1f}% of it; its tiles pad the products "
         f"{padded:.4f}x ({by_wgmma:.4f}x by wgmma, {by_edge:.4f}x by the edge warp's mma.sync), at wgmma's "
         f"{rate_wgmma:.1f} and mma.sync's {rate_bf16:.1f} TFLOP/s (phase 2) a floor of {floor_ms:.3f} ms (kernel "
-        f"at {100 * floor_ms / kernel_ms:.1f}% of it); conv_layer_bf16's m16n8k16 tiles pad them {old_padded:.4f}x, "
-        f"at mma.sync's bf16 {rate_bf16:.1f} TFLOP/s a floor of {old_floor_ms:.3f} ms "
-        f"(conv_layer_bf16 at {100 * old_floor_ms / old_ms:.1f}% of it)")
+        f"at {100 * floor_ms / kernel_ms:.1f}% of it)")
     log(f"launch plan bf16, wgmma kernel ({B * T} frames at {B} x 8 s): {plan._asdict()}")
-    log(f"launch plan bf16, conv_layer_bf16: {old_plan._asdict()}")
     return {
         "name": "rced_stack",
         "dtype": "bfloat16",
@@ -1074,9 +1040,6 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk
         "library_ms": None,
         "cudnn_stack_bf16_ms": cudnn_ms,
         "float32_kernel_ms": f32_ms,
-        # conv_layer_bf16, the mma.sync design this kernel replaced on the
-        # main path, timed beside it
-        "mma_sync_ms": old_ms,
         "mma_sync_bf16_tflops": rate_bf16,
         "wgmma_bf16_tflops": rate_wgmma,
         # computed from this run's inputs and the rates above, not timed
@@ -1085,24 +1048,11 @@ def run_stack_bf16(dev, fused, requests, rate_bf16: float, rate_wgmma: float, pk
             "padded_product_ratio_wgmma": by_wgmma,
             "padded_product_ratio_edge_mma_sync": by_edge,
             "wgmma_floor_ms": floor_ms,
-            "mma_sync_padded_product_ratio": old_padded,
-            "mma_sync_floor_ms": old_floor_ms,
         },
     }
 
 
 # -- the training path ---------------------------------------------------
-
-
-def noise_like(rng, seconds, sr=SR):
-    """White noise through a one-pole filter of random colour, under a slow
-    level wander."""
-    from scipy.signal import lfilter
-
-    n = int(seconds * sr)
-    colored = lfilter([1.0], [1.0, -rng.uniform(-0.9, 0.95)], rng.standard_normal(n))
-    colored *= 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.05, 0.3) * np.arange(n) / sr)
-    return (0.1 * colored / np.abs(colored).max()).astype(np.float32)
 
 
 def write_corpus(root: str, rng) -> dict:
@@ -1115,18 +1065,18 @@ def write_corpus(root: str, rng) -> dict:
     os.makedirs(root, exist_ok=True)
     clean, noise, val = [], [], []
     for i in range(N_UTTS):
-        sig = speech_like(rng, rng.uniform(6.5, 8.0))
+        sig = speech_bank(rng, rng.uniform(6.5, 8.0))
         path = os.path.join(root, f"clean_{i}.wav")
         write_wav(path, sig, SR)
         clean.append({"audio_filepath": path, "duration": len(sig) / SR})
     for i in range(8):
-        sig = noise_like(rng, 30.0)
+        sig = noise_recording(rng, 30.0)
         path = os.path.join(root, f"noise_{i}.wav")
         write_wav(path, sig, SR)
         noise.append({"audio_filepath": path, "duration": len(sig) / SR})
     for i in range(N_VAL):
-        sig = speech_like(rng, rng.uniform(2.0, 8.0))
-        nz = noise_like(rng, len(sig) / SR)
+        sig = speech_bank(rng, rng.uniform(2.0, 8.0))
+        nz = noise_recording(rng, len(sig) / SR)
         mix = sig + nz * np.sqrt((sig ** 2).sum() / (nz ** 2).sum())
         c, m = os.path.join(root, f"val_{i}.wav"), os.path.join(root, f"val_{i}_in.wav")
         write_wav(c, sig, SR)
@@ -1258,16 +1208,15 @@ def dw_against_plain(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.fl
     return max_err
 
 
-def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.float32, other=None):
+def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.float32):
     """Per layer of `shapes` at 64 x 8 s: the dW kernel `blocked_dw` takes
-    for `dtype` (in bf16 the wgmma one), its plain version,
+    for `dtype` (in bf16 the wgmma one), its plain version and
     `torch.nn.grad.conv2d_weight` in `dtype` (cuDNN's backward-filter, the
-    yardstick, held against the kernel first) and, if given, `other` (a
-    function like `blocked_dw`, held against the kernel within DW_TOL) with
-    CUDA events, and the kernel's launch plan.  Returns the sums over the
-    layers (kernel, plain, library, other) in ms, and the products the
-    plans compute over the products needed: the tiles pad Ci and Co, and
-    each row's nbp staged positions run all KB taps."""
+    yardstick, held against the kernel first) with CUDA events, and the
+    kernel's launch plan.  Returns the sums over the layers (kernel, plain,
+    library) in ms, and the products the plans compute over the products
+    needed: the tiles pad Ci and Co, and each row's nbp staged positions
+    run all KB taps."""
     from fullycnnspeechenhancement_torch.ops import blocked_dw
 
     # cuDNN sums in its own order and, in bf16, returns dW rounded to bf16
@@ -1275,7 +1224,7 @@ def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.floa
     label = "" if dtype == torch.float32 else "bf16 "
     rows = B_TRAIN * T_BUCKET
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    k_ms = p_ms = lib_ms = other_ms = 0.0
+    k_ms = p_ms = lib_ms = 0.0
     padded_products = 0
     for name, ci, co in shapes:
         z = torch.randn(B_TRAIN, T_BUCKET, nb, ci, device=dev, generator=gen).to(dtype)
@@ -1286,24 +1235,19 @@ def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.floa
         got = blocked_dw.blocked_dw(z, dy, kb, dc)
         check_close(f"conv2d_weight {label}{name}", lib.float(), got.permute(3, 2, 0, 1), lib_rtol,
                     lib_atol * got.abs().max().item())
-        if other is not None:
-            check_close(f"{label}{name} other design", other(z, dy, kb, dc), got, DW_TOL,
-                        DW_TOL * got.abs().max().item())
-            other_ms += cuda_ms(lambda: other(z, dy, kb, dc), reps=10)
         layer_k = cuda_ms(lambda: blocked_dw.blocked_dw(z, dy, kb, dc), reps=10)
         layer_p = cuda_ms(lambda: blocked_dw.blocked_dw_plain(z, dy, kb, dc), reps=2, warmup=1)
         layer_lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(zpad, (co, ci, 1, kb), go), reps=10)
         if blocked_dw.takes_wgmma(z, dy, kb):
             plan = blocked_dw.wgmma_plan(rows, nb, ci, co, kb, sm_count,
-                                         blocked_dw.card_blocks_per_sm(kb, dev, dtype, wgmma=True))
+                                         blocked_dw.card_blocks_per_sm(kb, dev, wgmma=True))
             tci, tco, nbp = plan.tile_ci, blocked_dw.TILE_CO_WGMMA, plan.nbp
             detail = (f"tile {tco} co x {tci} ci, {plan.tiles} tiles x {plan.splits} splits of "
                       f"{plan.rows_per_split} rows, a ring of {plan.stages} stages of "
                       f"{blocked_dw.STAGE_ROWS_WGMMA} rows x {nbp} positions, cluster 1 (no multicast)")
         else:
-            plan = blocked_dw.launch_plan(rows, nb, ci, co, kb, sm_count,
-                                          blocked_dw.card_blocks_per_sm(kb, dev, dtype), dtype)
-            tci, tco, nbp = blocked_dw.TILE, blocked_dw.tile_co(dtype), nb + kb - 1
+            plan = blocked_dw.launch_plan(rows, nb, ci, co, kb, sm_count, blocked_dw.card_blocks_per_sm(kb, dev))
+            tci, tco, nbp = blocked_dw.TILE, blocked_dw.TILE, nb + kb - 1
             detail = (f"{plan.tiles} tiles x {plan.splits} splits of {plan.rows_per_split} rows, "
                       f"stages of {plan.stage_rows} rows")
         blocks, slots = plan.tiles * plan.splits, sm_count * plan.blocks_per_sm
@@ -1316,7 +1260,7 @@ def time_dw_layers(dev, shapes, kb: int, dc: int, nb: int, gen, dtype=torch.floa
     needed = sum(ci * co for _, ci, co in shapes)
     padded = padded_products / (nbp * needed)
     computed = padded_products * kb / (needed * sum(max(0, nb - abs(d - dc)) for d in range(kb)))
-    return k_ms, p_ms, lib_ms, other_ms, padded, computed
+    return k_ms, p_ms, lib_ms, padded, computed
 
 
 def time_steps(trainers: dict, batch) -> dict:
@@ -1448,7 +1392,7 @@ def run_training(dev, tmp: str, rate: float):
                         checkpoint=last, device="cuda")
         for fused in (True, False)
     ]
-    sig = speech_like(rng, 6.0)
+    sig = speech_bank(rng, 6.0).astype(np.float32)
     out, ref = (torch.as_tensor(e.denoise_array(sig)) for e in engines)
     err = check_close("served from the checkpoint", out, ref, 0.0, MAIN_TOL * ref.abs().max().item())
     if not torch.equal(engines[0].params["decode_4"]["w"], trainer.state.params["decode_4"]["w"].detach()):
@@ -1540,7 +1484,7 @@ def run_training(dev, tmp: str, rate: float):
     # -- 11. timings -----------------------------------------------------------
     t0 = time.perf_counter()
     rows_full = B_TRAIN * T_BUCKET
-    k_ms, p_ms, lib_ms, _, padded, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen)
+    k_ms, p_ms, lib_ms, padded, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen)
     flop, nbytes = dw_work(shapes, rows_full, nb, kb, dc)
     # 3xTF32 issues three TF32 products for each float32 one
     t_ops, t_simt = 3 * flop / PEAK_TF32_FLOPS * 1e3, flop / PEAK_FP32_FLOPS * 1e3
@@ -1615,7 +1559,7 @@ def run_training(dev, tmp: str, rate: float):
     return entry, last, ctx
 
 
-def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: float) -> dict:
+def run_training_bf16(dev, tmp: str, ctx: dict, rate_wgmma: float) -> dict:
     """Phases 11a-11c: the training path in bf16, through the bf16 dW
     kernel on wgmma.  Returns the bf16 `blocked_dw` entry of the `kernels`
     line."""
@@ -1637,13 +1581,12 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
     ini = write_train_ini(os.path.join(tmp, "train_bf16.cfg"), root, corpus, compute_dtype="bfloat16",
                           epochs=EPOCHS_BF16, valid_every=1)
     validations = []
-    blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+    blocked_dw.launches = blocked_dw.launches_bf16 = 0
     reset_chain_launches()
     with timed_validation(validations):
         trainer = train_cli.main(["--cfg", ini])
     torch.cuda.synchronize()
     launches, launches32 = blocked_dw.launches_bf16, blocked_dw.launches
-    launches_old = blocked_dw.launches_bf16_mma_sync
     chain = chain_launches()
     main_s = time.perf_counter() - t0
     with open(os.path.join(root, "log", "scalars_RCED_FullyCNNV2.jsonl")) as f:
@@ -1652,13 +1595,13 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
     valid = [r for r in all_rows if any(k.startswith("valid_") for k in r)]
     steps = len(rows)
     log(f"bf16 training main path: {steps} steps in {main_s:.1f} s, blocked_dw bf16 launches {launches} "
-        f"through the wgmma kernel ({launches_old} through the mma.sync one, float32 {launches32}), "
+        f"through the wgmma kernel (float32 {launches32}), "
         f"losses {[round(r['loss'], 3) for r in rows]}")
     if steps != EPOCHS_BF16 * N_UTTS // B_TRAIN:
         raise AssertionError(f"bf16: {steps} logged steps, expected {EPOCHS_BF16 * N_UTTS // B_TRAIN}")
-    if launches != n_dw * steps or launches32 != 0 or launches_old != 0:
-        raise AssertionError(f"bf16: blocked_dw launched {launches} wgmma, {launches_old} bf16 mma.sync and "
-                             f"{launches32} float32 times in {steps} steps, expected {n_dw * steps}, 0 and 0")
+    if launches != n_dw * steps or launches32 != 0:
+        raise AssertionError(f"bf16: blocked_dw launched {launches} wgmma and {launches32} float32 times in "
+                             f"{steps} steps, expected {n_dw * steps} and 0")
     check_chain_launches("bf16 training main path", chain, sum(spec.use_norm for spec in model.layers), steps,
                          validations)
     check_proj_launches("bf16 training main path", proj_launches(), steps, True, validations)
@@ -1724,29 +1667,22 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
                                       torch.empty(1, 1, nb, co, dtype=bf16, device=dev), kb)
                for _, ci, co in shapes):
         raise AssertionError("bf16: a V2 layer's shape does not go to the wgmma kernel")
-    blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+    blocked_dw.launches = blocked_dw.launches_bf16 = 0
     max_err = dw_against_plain(dev, shapes, kb, dc, nb, gen, bf16)
-    if blocked_dw.launches_bf16_mma_sync != 0:
-        raise AssertionError("bf16: the dW checks launched the mma.sync kernel")
-    k_ms, p_ms, lib_ms, old_ms, _, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen, bf16,
-                                                             other=blocked_dw.blocked_dw_mma_sync)
+    if blocked_dw.launches != 0:
+        raise AssertionError("bf16: the dW checks launched the 3xTF32 kernel")
+    k_ms, p_ms, lib_ms, _, computed = time_dw_layers(dev, shapes, kb, dc, nb, gen, bf16)
     flop, nbytes = dw_work(shapes, B_TRAIN * T_BUCKET, nb, kb, dc, in_bytes=2)
     t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     floor_ms = flop * computed / (rate_wgmma * 1e12) * 1e3
-    # the mma.sync design's tiles (TILE ci by tile_co(bf16) co) and nbp
-    tci, tco = blocked_dw.TILE, blocked_dw.tile_co(bf16)
-    old_computed = sum(-(-ci // tci) * -(-co // tco) * tci * tco for _, ci, co in shapes) * (nb + kb - 1) * kb / (
-        sum(ci * co for _, ci, co in shapes) * sum(max(0, nb - abs(d - dc)) for d in range(kb)))
-    old_floor_ms = flop * old_computed / (rate_bf16 * 1e12) * 1e3
     log(f"timing blocked_dw bf16 over V2's 14 layers at {B_TRAIN} x 8 s: wgmma kernel {k_ms:.3f} ms, "
-        f"the bf16 mma.sync design {old_ms:.3f} ms, the 3xTF32 kernel {ctx['kernel_ms32']:.3f} ms (phase 11), "
-        f"plain {p_ms:.3f} ms, conv2d_weight in bf16 (cuDNN) {lib_ms:.3f} ms")
+        f"the 3xTF32 kernel {ctx['kernel_ms32']:.3f} ms (phase 11), plain {p_ms:.3f} ms, conv2d_weight in bf16 "
+        f"(cuDNN) {lib_ms:.3f} ms")
     log(f"bound bf16: {flop:.4e} FLOP -> {t_ops:.3f} ms at 989 TFLOP/s; {nbytes:.4e} B -> {t_bytes:.3f} ms at "
         f"3.35 TB/s; kernel at {100 * bound_ms / k_ms:.1f}% of it; it computes {computed:.4f}x the needed "
         f"products, at wgmma's {rate_wgmma:.1f} TFLOP/s (phase 2) a floor of {floor_ms:.3f} ms (kernel at "
-        f"{100 * floor_ms / k_ms:.1f}% of it); the mma.sync design computes {old_computed:.4f}x, at mma.sync's "
-        f"bf16 {rate_bf16:.1f} TFLOP/s a floor of {old_floor_ms:.3f} ms")
+        f"{100 * floor_ms / k_ms:.1f}% of it)")
     # whole bf16 train steps, beside float32's
     audio_s = float(sum(b.lengths.sum() for b in ctx["batches"][:1])) / SR
     step_ms = time_steps(trainers, ctx["batches"][0])
@@ -1784,17 +1720,12 @@ def run_training_bf16(dev, tmp: str, ctx: dict, rate_bf16: float, rate_wgmma: fl
         "library_ms": lib_ms,
         "library": "torch.nn.grad.conv2d_weight on bf16 (cuDNN backward-filter), one call per layer",
         "float32_kernel_ms": ctx["kernel_ms32"],
-        "mma_sync_bf16_tflops": rate_bf16,
         "wgmma_bf16_tflops": rate_wgmma,
         "train_step_bf16_ms": {"dw_pallas": float(np.mean(step_ms[True])), "cudnn": float(np.mean(step_ms[False]))},
-        # floors computed from this run's inputs, plans and the rates above,
-        # and the bf16 mma.sync design timed beside the kernel (blocked_dw_mma_sync)
+        # the floor computed from this run's inputs, plans and the rate above
         "derived": {
             "computed_product_ratio": computed,
             "wgmma_floor_ms": floor_ms,
-            "mma_sync_design_ms": old_ms,
-            "mma_sync_design_product_ratio": old_computed,
-            "mma_sync_floor_ms": old_floor_ms,
         },
     }
 
@@ -2482,12 +2413,12 @@ def write_test_set(root: str, rng) -> dict:
     os.makedirs(root, exist_ok=True)
     clean, noise = [], []
     for i in range(N_TEST):
-        sig = speech_like(rng, rng.uniform(2.0, 8.0))
+        sig = speech_bank(rng, rng.uniform(2.0, 8.0))
         path = os.path.join(root, f"test_{i}.wav")
         write_wav(path, sig, SR)
         clean.append({"audio_filepath": path, "duration": len(sig) / SR})
     for i in range(4):
-        sig = noise_like(rng, 30.0)
+        sig = noise_recording(rng, 30.0)
         path = os.path.join(root, f"test_noise_{i}.wav")
         write_wav(path, sig, SR)
         noise.append({"audio_filepath": path, "duration": len(sig) / SR})
@@ -2651,7 +2582,7 @@ def run_streaming(dev, tmp: str) -> None:
     config = Config(model=ModelConfig(net_work="FullyCNNV2"))
     engine = InferenceEngine(config, checkpoint=npz, device=dev)
     rng = np.random.default_rng(16)
-    sig = speech_like(rng, 30.0)
+    sig = speech_bank(rng, 30.0).astype(np.float32)
     push = 8 * config.dsp.frame_step
 
     reb = WaveformRebuilder(config.dsp, mode="overlap_add")
@@ -2689,7 +2620,7 @@ def run_streaming(dev, tmp: str) -> None:
     with open(ini, "w") as f:
         f.write("[model]\nnet_work=FullyCNNV2\n")
     wav_in = os.path.join(tmp, "stream_in.wav")
-    write_wav(wav_in, speech_like(rng, 6.0), SR)
+    write_wav(wav_in, speech_bank(rng, 6.0), SR)
     report = stream_cli.main(["--cfg", ini, "--audio-file", wav_in, "--checkpoint", npz, "--device", str(dev)])
     if sorted(report) != ["budget_ms", "latency_ms", "out", "push_p50_ms", "push_p95_ms", "rtf"] \
             or not os.path.exists(report["out"]):
@@ -2792,7 +2723,7 @@ def run_device_cache(dev, tmp: str, ctx: dict) -> dict:
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+        blocked_dw.launches = blocked_dw.launches_bf16 = 0
         reset_chain_launches()
         t0 = time.perf_counter()
         train_cli.build_loaders, device_cache.commit_flats = timed_build, timed_commit
@@ -2805,19 +2736,19 @@ def run_device_cache(dev, tmp: str, ctx: dict) -> dict:
             Trainer._dispatch_cached = real_dispatch
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n, n32, n_old = blocked_dw.launches_bf16, blocked_dw.launches, blocked_dw.launches_bf16_mma_sync
+        n, n32 = blocked_dw.launches_bf16, blocked_dw.launches
         chain = chain_launches()
         rows, valid = logged_losses(root)
         steps = len(rows)
         rates = epoch_rates(root)
         log(f"device cache {tag}: {steps} steps in {wall:.1f} s, blocked_dw bf16 launches {n} through the wgmma "
-            f"kernel ({n_old} through the mma.sync one, float32 {n32}), dispatches of {ks} steps, losses "
+            f"kernel (float32 {n32}), dispatches of {ks} steps, losses "
             f"{[round(r['loss'], 3) for r in rows]}; epochs {rates}; cache build {setup['build_s']:.3f} s, "
             f"{setup['commits']} commits in {setup['commit_s']:.3f} s; max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-        if n != n_dw * steps or n32 != 0 or n_old != 0 or steps == 0:
-            raise AssertionError(f"device cache {tag}: blocked_dw launched {n} wgmma, {n_old} bf16 mma.sync and "
-                                 f"{n32} float32 times in {steps} steps, expected {n_dw * steps}, 0 and 0")
+        if n != n_dw * steps or n32 != 0 or steps == 0:
+            raise AssertionError(f"device cache {tag}: blocked_dw launched {n} wgmma and {n32} float32 times in "
+                                 f"{steps} steps, expected {n_dw * steps} and 0")
         if sum(ks) != steps:
             raise AssertionError(f"device cache {tag}: dispatches of {ks} steps, {steps} steps logged")
         check_chain_launches(f"device cache {tag}", chain, n_bn, steps, validations)
@@ -3004,7 +2935,7 @@ def run_export(dev, tmp: str, checkpoint: str) -> None:
     config = Config(model=ModelConfig(net_work="FullyCNNV2"))
     ref_engine = InferenceEngine(config, checkpoint=checkpoint, device=dev)
     npz_engine = InferenceEngine(config, checkpoint=npz, device=dev)
-    sig = speech_like(np.random.default_rng(18), 6.0)
+    sig = speech_bank(np.random.default_rng(18), 6.0).astype(np.float32)
     n = len(sig)
     wav = torch.zeros(1, ref_engine._pad_len(n), device=dev)
     wav[0, :n] = torch.as_tensor(sig, device=dev)
@@ -3131,14 +3062,14 @@ def _dp_rank(rank: int, init_method: str, inis: dict, out_dir: str, device: str)
     out = {}
     try:
         for tag, ini in inis.items():
-            blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+            blocked_dw.launches = blocked_dw.launches_bf16 = 0
             reset_chain_launches()
             t0 = time.perf_counter()
             trainer = train_cli.main(["--cfg", ini, "--device", device, "--num-works", "4"])
             _sync(device)
             out[tag] = {
                 "float32": blocked_dw.launches, "bf16_wgmma": blocked_dw.launches_bf16,
-                "bf16_mma_sync": blocked_dw.launches_bf16_mma_sync, "bn_chain": list(chain_launches()),
+                "bn_chain": list(chain_launches()),
                 "proj_train": list(proj_launches()),
                 "wall_s": time.perf_counter() - t0,
                 "steps": trainer._host_step, "rows": trainer.config.train.batch_size // DP_RANKS,
@@ -3252,8 +3183,8 @@ def run_data_parallel(dev, tmp: str, corpus: dict, single_last: str) -> dict:
     for r, res in enumerate(ranks):
         got = res["float32"]
         log(f"DP float32 rank {r}: {got['steps']} steps of {got['rows']} rows in {got['wall_s']:.1f} s, blocked_dw "
-            f"launches {got['float32']} (bf16 {got['bf16_wgmma']} + {got['bf16_mma_sync']})")
-        if got["steps"] != steps or got["float32"] != n_dw * steps or got["bf16_wgmma"] or got["bf16_mma_sync"]:
+            f"launches {got['float32']} (bf16 {got['bf16_wgmma']})")
+        if got["steps"] != steps or got["float32"] != n_dw * steps or got["bf16_wgmma"]:
             raise AssertionError(f"DP float32 rank {r}: {got}, expected {n_dw * steps} float32 launches in "
                                  f"{steps} steps")
         check_chain_launches(f"DP float32 rank {r}", tuple(got["bn_chain"]), n_bn, steps)
@@ -3280,8 +3211,8 @@ def run_data_parallel(dev, tmp: str, corpus: dict, single_last: str) -> dict:
     for r, res in enumerate(ranks):
         got = res["bf16"]
         log(f"DP bf16 rank {r}: {got['steps']} steps of {got['rows']} rows in {got['wall_s']:.1f} s, dw_wgmma_kernel "
-            f"launches {got['bf16_wgmma']} (bf16 mma.sync {got['bf16_mma_sync']}, float32 {got['float32']})")
-        if got["steps"] != steps16 or got["bf16_wgmma"] != n_dw * steps16 or got["float32"] or got["bf16_mma_sync"]:
+            f"launches {got['bf16_wgmma']} (float32 {got['float32']})")
+        if got["steps"] != steps16 or got["bf16_wgmma"] != n_dw * steps16 or got["float32"]:
             raise AssertionError(f"DP bf16 rank {r}: {got}, expected {n_dw * steps16} wgmma launches in "
                                  f"{steps16} steps")
         check_chain_launches(f"DP bf16 rank {r}", tuple(got["bn_chain"]), n_bn, steps16)
@@ -3357,7 +3288,7 @@ def run_time_sharded(dev, tmp: str) -> None:
     meshed._sharded_model = recording
     rng = np.random.default_rng(20)
     for seconds, sharded in ((60.0, True), (6.0, False)):
-        sig = speech_like(rng, seconds)
+        sig = speech_bank(rng, seconds).astype(np.float32)
         before = len(calls)
         got = meshed.denoise_array(sig)
         ref = plain.denoise_array(sig)
@@ -3403,11 +3334,12 @@ def run_prepare(tmp: str) -> None:
             d = os.path.join(a1, "data_aishell", "wav", split, spk)
             os.makedirs(d, exist_ok=True)
             for u in range(3):
-                write_wav(os.path.join(d, f"B{spk}W{u}.wav"), speech_like(rng, rng.uniform(1.0, 3.0), 16000), 16000)
+                # 8 kHz speech-like samples of twice the length, written as 16 kHz audio
+                write_wav(os.path.join(d, f"B{spk}W{u}.wav"), speech_bank(rng, 2 * rng.uniform(1.0, 3.0)), 16000)
         d = os.path.join(nz, split)
         os.makedirs(d, exist_ok=True)
         for u in range(2):
-            write_wav(os.path.join(d, f"n{u}.wav"), noise_like(rng, 4.0, 16000), 16000)
+            write_wav(os.path.join(d, f"n{u}.wav"), noise_recording(rng, 8.0), 16000)
         counts[split] = 3 * len(spks)
     prefix_a1, prefix_nz = os.path.join(root, "manifests", "aishell_1"), os.path.join(root, "manifests", "noise")
     aishell_1.prepare(a1, prefix_a1, SR, workers=2)
@@ -3464,7 +3396,7 @@ def run_quality_phase(dev, tmp: str) -> dict:
     cache) with dw_pallas and fused scoring, once per QUALITY_RUNS entry,
     each kernel's launch counts set to 0 just before each run and read
     just after: under bf16 14 `dw_wgmma_kernel` launches a step and none of
-    the bf16 mma.sync or float32 dW kernels, in float32 14 3xTF32 ones a
+    the float32 dW kernel, in float32 14 3xTF32 ones a
     step and no bf16 one; one float32 `rced_stack` launch a scoring call
     (4 held-out utterances for the untrained and the trained model), no
     bf16 one.  Every run scores PESQ with `p862-native` and holds its fused
@@ -3485,16 +3417,15 @@ def run_quality_phase(dev, tmp: str) -> dict:
     for tag, (loader, dtype, epochs, start) in QUALITY_RUNS.items():
         t0 = time.perf_counter()
         torch.cuda.synchronize()
-        blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
-        rced_stack.launches = rced_stack.launches_bf16 = rced_stack.launches_bf16_wgmma = 0
+        blocked_dw.launches = blocked_dw.launches_bf16 = 0
+        rced_stack.launches = rced_stack.launches_bf16_wgmma = 0
         r = quality.run_quality(device=dev, epochs=epochs, train_utts=32, loader=loader, compute_dtype=dtype,
                                 dw_pallas=True, fused_inference=True, root=os.path.join(tmp, f"quality_{tag}"),
                                 gate=start == "jax", init_npz=QUALITY_INIT_NPZ if start == "jax" else "")
         torch.cuda.synchronize()
         got = {
             "dw_float32": blocked_dw.launches, "dw_bf16_wgmma": blocked_dw.launches_bf16,
-            "dw_bf16_mma_sync": blocked_dw.launches_bf16_mma_sync, "stack_float32": rced_stack.launches,
-            "stack_bf16": rced_stack.launches_bf16 + rced_stack.launches_bf16_wgmma,
+            "stack_float32": rced_stack.launches, "stack_bf16": rced_stack.launches_bf16_wgmma,
         }
         dw_key = "dw_bf16_wgmma" if dtype == "bfloat16" else "dw_float32"
         want = {k: 0 for k in got}
@@ -3853,7 +3784,7 @@ def main() -> int:
         stack_entry, stack_bf16_entry, edge_entries = run_serving(dev, tmp, mma_rate, rate_bf16, rate_wgmma)
         phase("serving", t0)
         dw_entry, last_checkpoint, train_ctx = run_training(dev, tmp, mma_rate)
-        dw_bf16_entry = run_training_bf16(dev, tmp, train_ctx, rate_bf16, rate_wgmma)
+        dw_bf16_entry = run_training_bf16(dev, tmp, train_ctx, rate_wgmma)
         chain_bn_entry = run_bn_chain(dev)
         proj_entry = run_proj_train(dev)
         t0 = time.perf_counter()

@@ -17,14 +17,15 @@ it.  z and dy are both float32 or both bfloat16 (the compute dtype, as the
 JAX kernel takes them).  float32 runs a 3xTF32 `mma.sync` kernel; bfloat16
 runs a `wgmma` kernel fed by TMA where Ci and Co are multiples of 8 and
 both tensors 16-byte aligned (`takes_wgmma`: every blocked layer at fb 8),
-and a bf16 `mma.sync` kernel on any other shape, chosen by shape before
-the launch.  `blocked_dw` is the kernels' wrapper: on a CPU tensor it runs
+chosen by shape before the launch.  A bf16 pair of any other shape runs
+the 3xTF32 kernel on float32 copies of z and dy: bf16 values are exact in
+float32 and their 3xTF32 small parts are 0, so the products are exact and
+the result is float32 sums of them, as the `wgmma` kernel's is.
+`blocked_dw` is the kernels' wrapper: on a CPU tensor it runs
 `blocked_dw_plain`, the same contraction as einsums in float32; on a CUDA
 tensor it launches a kernel (building it on first use) or raises.
-`blocked_dw_mma_sync` launches the bf16 `mma.sync` kernel on any bf16
-shape, so that it can be checked and timed beside the `wgmma` one; no
-path of the package calls it.  `launches`, `launches_bf16` (`wgmma`) and
-`launches_bf16_mma_sync` count each kernel's launches.
+`launches` (3xTF32) and `launches_bf16` (`wgmma`) count each kernel's
+launches.
 
 `blocked_freq_conv` is the autograd Function around the raw blocked conv
 (JAX's `custom_vjp`): the forward and dX are cuDNN convs, dW is
@@ -44,12 +45,11 @@ import torch.nn.functional as F
 from fullycnnspeechenhancement_torch.ops import build
 
 MAX_KB = 8  # taps the kernel is instantiated for
-TILE = 32  # ci per block, and co per block of the float32 instance (csrc kBn, kBm)
-TILE_CO_BF16 = 64  # co per block of the bf16 instance (csrc kBmBf16)
+TILE = 32  # ci and co per block of the 3xTF32 kernel (csrc kBn, kBm)
 ROW_PAD = 4  # floats after each staged position's channels (csrc kRowPad)
-ROW_PAD_BF16 = 8  # the same in bf16 values (csrc kRowPadBf16)
 STAGE_POSITIONS = 80  # flat K positions (rows x nbp) aimed at per stage
-K_STEP = {torch.float32: 8, torch.bfloat16: 16}  # K per mma.sync (m16n8k8, m16n8k16)
+K_STEP = 8  # K per mma.sync (m16n8k8)
+DTYPES = (torch.float32, torch.bfloat16)
 FLUSH_POSITIONS = 4096  # K positions between flushes into float32 (csrc kFlushPositions)
 SMEM_BYTES = 232_448  # the most shared memory one Hopper block can use
 SM_SMEM_BYTES = 233_472  # shared memory of one SM; each block also takes 1 KiB
@@ -64,19 +64,18 @@ WGMMA_MIN_STAGES = 3  # csrc kWgMinStages: a warpgroup holds two stages at once
 WGMMA_MAX_STAGES = 8  # csrc kWgMaxStages
 MAX_BOX = 256  # the most elements a TMA box takes along one dimension
 
-# Kernel launches since the counts were last set to 0: the float32
-# kernel, the bf16 wgmma kernel and the bf16 mma.sync one.
+# Kernel launches since the counts were last set to 0: the 3xTF32
+# kernel and the bf16 wgmma kernel.
 launches = 0
 launches_bf16 = 0
-launches_bf16_mma_sync = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _occupancy: dict = {}
 
 
 class Plan(NamedTuple):
-    """How one `blocked_dw` launch covers its problem: `tiles` blocks of
-    `tile_co(dtype)` co by TILE ci per row split, stages of `stage_rows`
+    """How one launch of the 3xTF32 kernel covers its problem: `tiles`
+    blocks of TILE co by TILE ci per row split, stages of `stage_rows`
     rows (`smem_bytes` of shared memory for two, `blocks_per_sm` resident
     blocks at that), and `splits` row splits of `rows_per_split` rows."""
 
@@ -88,28 +87,20 @@ class Plan(NamedTuple):
     splits: int
 
 
-def tile_co(dtype=torch.float32) -> int:
-    """co per block of the `dtype` instance."""
-    return TILE_CO_BF16 if dtype == torch.bfloat16 else TILE
-
-
-def stage_rows_for(nb: int, kb: int, dtype=torch.float32) -> int:
+def stage_rows_for(nb: int, kb: int) -> int:
     """Rows per stage: a multiple of the fewest whose nbp = NB + KB - 1
-    positions each make whole K chunks of the dtype's mma (8 positions,
-    16 in bf16), with about STAGE_POSITIONS positions in all."""
+    positions each make whole k8 chunks, with about STAGE_POSITIONS
+    positions in all."""
     nbp = nb + kb - 1
-    step = K_STEP[dtype] // math.gcd(nbp, K_STEP[dtype])
+    step = K_STEP // math.gcd(nbp, K_STEP)
     return step * max(1, STAGE_POSITIONS // (step * nbp))
 
 
-def smem_bytes(stage_rows: int, nb: int, kb: int, dtype=torch.float32) -> int:
+def smem_bytes(stage_rows: int, nb: int, kb: int) -> int:
     """Shared memory of one block, two stages (csrc `blocked_dw_smem_bytes`):
-    dy [P, tile_co + pad] and z [P + KB - 1, TILE + pad] values, P =
-    stage_rows * nbp; 4 floats of pad, or 8 bf16."""
+    dy [P, TILE + 4] and z [P + KB - 1, TILE + 4] floats, P = stage_rows *
+    nbp."""
     positions = stage_rows * (nb + kb - 1)
-    if dtype == torch.bfloat16:
-        return 2 * 2 * (positions * (TILE_CO_BF16 + ROW_PAD_BF16)
-                         + (positions + kb - 1) * (TILE + ROW_PAD_BF16))
     return 2 * 4 * (2 * positions + kb - 1) * (TILE + ROW_PAD)
 
 
@@ -122,20 +113,19 @@ def model_blocks_per_sm(kb: int, smem: int) -> int:
 
 
 def launch_plan(rows: int, nb: int, ci: int, co: int, kb: int, sm_count: int,
-                blocks_per_sm: Optional[Callable[[int], int]] = None,
-                dtype=torch.float32) -> Plan:
-    """The stage (`stage_rows_for`) and the row splits, at least one stage
-    of rows each, whose blocks best fill whole waves of sm_count *
-    blocks_per_sm(smem) resident blocks (`model_blocks_per_sm` when not
-    given), for the `dtype` instance."""
-    stage_rows = stage_rows_for(nb, kb, dtype)
-    smem = smem_bytes(stage_rows, nb, kb, dtype)
+                blocks_per_sm: Optional[Callable[[int], int]] = None) -> Plan:
+    """The 3xTF32 kernel's stage (`stage_rows_for`) and row splits, at
+    least one stage of rows each, whose blocks best fill whole waves of
+    sm_count * blocks_per_sm(smem) resident blocks (`model_blocks_per_sm`
+    when not given)."""
+    stage_rows = stage_rows_for(nb, kb)
+    smem = smem_bytes(stage_rows, nb, kb)
     if smem > SMEM_BYTES:
         raise ValueError(f"blocked_dw: NB={nb}, KB={kb} needs {smem} B of shared memory per block")
     per_sm = blocks_per_sm(smem) if blocks_per_sm else model_blocks_per_sm(kb, smem)
     if per_sm < 1:
         raise ValueError(f"blocked_dw: no block of {smem} B of shared memory fits an SM")
-    tiles = -(-ci // TILE) * -(-co // tile_co(dtype))
+    tiles = -(-ci // TILE) * -(-co // TILE)
     rows_per_split, splits = row_splits(rows, stage_rows, tiles, sm_count * per_sm)
     return Plan(stage_rows, smem, per_sm, tiles, rows_per_split, splits)
 
@@ -279,8 +269,7 @@ def load_library() -> ctypes.CDLL:
         lib.blocked_dw_forward.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.blocked_dw_wgmma.restype = ctypes.c_int
         lib.blocked_dw_wgmma.argtypes = [
@@ -303,20 +292,18 @@ def _check(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"blocked_dw {what} failed: {lib.blocked_dw_error_string(rc).decode()} ({rc})")
 
 
-def card_blocks_per_sm(kb: int, device: torch.device, dtype=torch.float32,
-                       wgmma: bool = False) -> Callable[[int], int]:
-    """blocks_per_sm(smem) of the KB instance of the `dtype` mma.sync
-    kernel, or of the wgmma one, on `device`, from the CUDA occupancy
-    calculator (registers and shared memory), cached."""
+def card_blocks_per_sm(kb: int, device: torch.device, wgmma: bool = False) -> Callable[[int], int]:
+    """blocks_per_sm(smem) of the KB instance of the 3xTF32 kernel, or of
+    the wgmma one, on `device`, from the CUDA occupancy calculator
+    (registers and shared memory), cached."""
     lib = load_library()
-    mode = 2 if wgmma else int(dtype == torch.bfloat16)
 
     def blocks(smem: int) -> int:
-        key = (device.index, kb, smem, mode)
+        key = (device.index, kb, smem, wgmma)
         if key not in _occupancy:
             n = ctypes.c_int(0)
             with torch.cuda.device(device):
-                rc = lib.blocked_dw_blocks_per_sm(kb, smem, mode, ctypes.byref(n))
+                rc = lib.blocked_dw_blocks_per_sm(kb, smem, int(wgmma), ctypes.byref(n))
             _check(lib, rc, "occupancy query")
             _occupancy[key] = n.value
         return _occupancy[key]
@@ -329,7 +316,7 @@ def _checked(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int):
     other."""
     if z.device.type != "cuda" or dy.device != z.device:
         raise ValueError(f"blocked_dw runs on cpu or cuda tensors, got {z.device} and {dy.device}")
-    if z.dtype not in K_STEP or dy.dtype != z.dtype:
+    if z.dtype not in DTYPES or dy.dtype != z.dtype:
         raise ValueError(f"blocked_dw takes two float32 or two bfloat16 tensors, got {z.dtype} and {dy.dtype}")
     if not (z.is_contiguous() and dy.is_contiguous()):
         raise ValueError("blocked_dw takes contiguous [B, T, NB, C] tensors")
@@ -346,13 +333,11 @@ def _checked(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int):
 
 
 def _launch_mma_sync(z, dy, kb, dc, rows, nb, ci, co) -> torch.Tensor:
-    """The float32 kernel, or the bf16 mma.sync one, on a checked pair."""
+    """The 3xTF32 kernel on a checked float32 pair."""
     sm_count = torch.cuda.get_device_properties(z.device).multi_processor_count
     lib = load_library()
-    plan = launch_plan(rows, nb, ci, co, kb, sm_count, card_blocks_per_sm(kb, z.device, z.dtype),
-                       z.dtype)
-    bf16 = z.dtype == torch.bfloat16
-    global launches, launches_bf16_mma_sync
+    plan = launch_plan(rows, nb, ci, co, kb, sm_count, card_blocks_per_sm(kb, z.device))
+    global launches
     out = torch.empty(1, kb, ci, co, dtype=torch.float32, device=z.device)
     part = out if plan.splits == 1 else torch.empty(
         plan.splits, kb, ci, co, dtype=torch.float32, device=z.device
@@ -360,14 +345,11 @@ def _launch_mma_sync(z, dy, kb, dc, rows, nb, ci, co) -> torch.Tensor:
     with torch.cuda.device(z.device):
         rc = lib.blocked_dw_forward(
             z.data_ptr(), dy.data_ptr(), out.data_ptr(), part.data_ptr(),
-            rows, nb, ci, co, kb, dc, plan.rows_per_split, plan.splits, plan.stage_rows, int(bf16),
+            rows, nb, ci, co, kb, dc, plan.rows_per_split, plan.splits, plan.stage_rows,
             torch.cuda.current_stream(z.device).cuda_stream,
         )
     _check(lib, rc, "launch")
-    if bf16:
-        launches_bf16_mma_sync += 1
-    else:
-        launches += 1
+    launches += 1
     return out
 
 
@@ -376,7 +358,7 @@ def _launch_wgmma(z, dy, kb, dc, rows, nb, ci, co) -> torch.Tensor:
     sm_count = torch.cuda.get_device_properties(z.device).multi_processor_count
     lib = load_library()
     plan = wgmma_plan(rows, nb, ci, co, kb, sm_count,
-                      card_blocks_per_sm(kb, z.device, torch.bfloat16, wgmma=True))
+                      card_blocks_per_sm(kb, z.device, wgmma=True))
     global launches_bf16
     out = torch.empty(1, kb, ci, co, dtype=torch.float32, device=z.device)
     # a slot per consumer warpgroup of each split, padded to whole tiles
@@ -399,27 +381,15 @@ def blocked_dw(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Ten
 
     CPU tensors run `blocked_dw_plain`.  CUDA tensors launch a kernel or
     raise; they never fall back to the plain version: float32 the 3xTF32
-    kernel, bfloat16 the wgmma kernel where `takes_wgmma`, else the bf16
-    mma.sync kernel (by shape, before the launch)."""
+    kernel, bfloat16 the wgmma kernel where `takes_wgmma`, else the 3xTF32
+    kernel on float32 copies (by shape, before the launch)."""
     if z.device.type == "cpu" and dy.device.type == "cpu":
         return blocked_dw_plain(z, dy, kb, dc)
     dims = _checked(z, dy, kb, dc)
-    if z.dtype == torch.bfloat16 and takes_wgmma(z, dy, kb):
-        return _launch_wgmma(z, dy, kb, dc, *dims)
-    return _launch_mma_sync(z, dy, kb, dc, *dims)
-
-
-def blocked_dw_mma_sync(z: torch.Tensor, dy: torch.Tensor, kb: int, dc: int) -> torch.Tensor:
-    """`blocked_dw` on bfloat16 z and dy through the bf16 mma.sync kernel,
-    whatever their shape: the design the wgmma kernel replaced where it
-    takes the shape, kept for the shapes it does not take.  For checking
-    and timing the two side by side; no path of the package calls it.
-    CPU tensors run `blocked_dw_plain`."""
-    if z.device.type == "cpu" and dy.device.type == "cpu":
-        return blocked_dw_plain(z, dy, kb, dc)
-    dims = _checked(z, dy, kb, dc)
-    if z.dtype != torch.bfloat16:
-        raise ValueError(f"blocked_dw_mma_sync takes bfloat16 tensors, got {z.dtype}")
+    if z.dtype == torch.bfloat16:
+        if takes_wgmma(z, dy, kb):
+            return _launch_wgmma(z, dy, kb, dc, *dims)
+        z, dy = z.float(), dy.float()
     return _launch_mma_sync(z, dy, kb, dc, *dims)
 
 

@@ -82,52 +82,25 @@
 // 21.1 ms.
 //
 // The bf16 mode (z and dy in bf16, as the JAX kernel takes them in the
-// compute dtype; dW float32) is a second kernel, dw_bf16_kernel, on the
-// same plan: the same per-tap GEMM over the flat K = (row, block
-// position), the same nbp row stride with zero halos, the same cp.async
-// double buffering, flushes and row splits.  What changes:
+// compute dtype; dW float32) is a second kernel, dw_wgmma_kernel.  It
+// takes every bf16 pair whose Ci and Co are multiples of 8 and whose
+// pointers are 16-byte aligned (every blocked layer at fb = 8, where C =
+// 8 * out_ch).  ops/blocked_dw.py runs any other bf16 pair through
+// dw_mma_kernel on float32 copies of z and dy: a bf16 value is its own
+// TF32 big part with a zero small part, so each 3xTF32 product is exact
+// and the result is float32 sums of exact products, as here.
 // - What bounds it: bytes.  The same 1.2026e12 FLOP take 1.216 ms at the
 //   data sheet's 989 TFLOP/s dense bf16 rate; reading z and dy once, now
 //   2 bytes a value, takes 4.33e9 bytes, 1.293 ms at 3.35 TB/s.
-// - mma.sync.m16n8k16 with bf16 operands and float32 accumulators: one
-//   product a tile and no split.  A bf16 x bf16 product is exact in
-//   float32, so the result differs from the plain version (which promotes
-//   to float32) only in the order of its sums; the flushes stay, as the
-//   accumulation still truncates.
-// - Fragments come from shared memory by ldmatrix.x4.trans: both operands
-//   are staged [position][channel], so a stored 8 x 8 matrix of 8
-//   positions by 8 channels, transposed on load, is a fragment's (k pair,
-//   column) layout.  Each lane gives one row's address, so tap d's z
-//   fragments start at any position: the tap shift stays a uniform
-//   offset along K.
-// - Shared-memory bandwidth binds this design, not the tensor cores: an
-//   ldmatrix.x4 takes 4 of the SM's 128-byte cycles and an m16n8k16 mma
-//   about 2 at mma.sync's rate.  So a warp covers 32 co by 16 ci (a block
-//   64 co by 32 ci): per k16 chunk it loads dy's two m16 x k16 fragments
-//   once for all taps and one x4 (two n8 fragments) of z per tap, 6
-//   ldmatrix.x4 for 16 mma at KB = 4.  A warp tile of 16 co by 16 ci (the
-//   float32 kernel's) read 5 for 8 and ran V2's 14 layers in 9.504 ms on
-//   an H100 (chip_smoke.py), slower than cuDNN's 5.087 ms.
-// - Staged rows hold 64 + 8 bf16 of dy and 32 + 8 of z (144 and 80
-//   bytes, 9 and 5 of the 8 16-byte bank groups), so the 8 rows of an
-//   ldmatrix matrix fall in 8 distinct bank groups.
-// - Copies are 16-byte cp.async.cg (8 bf16) where both channel counts are
-//   multiples of 8 and both pointers 16-byte aligned; 4-byte cp.async (2
-//   bf16) where they are even and 4-byte aligned; else each bf16 is loaded
-//   and stored by its thread (odd channel counts: no copy is aligned).
-//   Only the bf16 shapes the wgmma kernel below does not take reach this
-//   one, and blocked_dw_mma_sync in ops/blocked_dw.py, which checks and
-//   times it beside the wgmma kernel.
-//
-// The bf16 mode on wgmma, dw_wgmma_kernel: the kernel every bf16 launch
-// takes when Ci and Co are multiples of 8 and both pointers 16-byte
-// aligned (every blocked layer at fb = 8, where C = 8 * out_ch).
-// - Why: mma.sync's bf16 rate on an H100 (503.8 TFLOP/s alone,
+// - Why wgmma: mma.sync's bf16 rate on an H100 (503.8 TFLOP/s alone,
 //   chip_smoke.py phase 2) is half the card's, and every operand of it
-//   went through registers by ldmatrix.  wgmma reaches the card's 989
-//   TFLOP/s and reads both operands from shared memory; for 16-bit types
-//   it reads either operand MN-major (its transpose flags), so dy and z
-//   stay channels-last as they are staged: no transpose anywhere.
+//   goes through registers by ldmatrix.  An mma.sync design on the plan
+//   above (ldmatrix.x4.trans fragments, blocks of 64 co by 32 ci) ran
+//   V2's 14 layers in 8.1 ms on an H100, bound by shared-memory
+//   bandwidth, against 4.0 ms for this kernel.  wgmma reaches the card's
+//   989 TFLOP/s and reads both operands from shared memory; for 16-bit
+//   types it reads either operand MN-major (its transpose flags), so dy
+//   and z stay channels-last as they are staged: no transpose anywhere.
 // - One GEMM per tap over the flat K, as above, but K runs position-major
 //   within a stage: a stage is 8 rows, and K-row k = n * 8 + r holds row r
 //   of the stage at block position n, for nbp positions (NB + KB - 1,
@@ -216,20 +189,15 @@ constexpr int kRowPad = 4;  // floats after each staged position's channels
 constexpr int kFlushPositions = 4096;
 
 struct Params {
-  const void* z;  // float or bf16 (raw 16-bit) values
-  const void* dy;
+  const float* z;
+  const float* dy;
   float* part;
   long long rows;
   long long rows_per_split;
   int nb, ci, co, dc;
-  int stage_rows;  // rows per stage; stage_rows * (nb + KB - 1) % 8 (bf16: 16) == 0
-  int vec;         // values per copy: 4 or 1 floats; 8, 2 or 1 bf16
+  int stage_rows;  // rows per stage; stage_rows * (nb + KB - 1) % 8 == 0
+  int vec;         // floats per copy: 4 or 1
 };
-
-// The bf16 kernel's block tile: 64 co (two m16 fragments a warp) by kBn
-// ci, and bf16 values of padding after each staged position's channels.
-constexpr int kBmBf16 = 64;
-constexpr int kRowPadBf16 = 8;
 
 // x = big + small + O(2^-20 |x|): big is x with its 13 low mantissa bits
 // cleared (a TF32 value), x - big is exact, and small is that with its
@@ -248,22 +216,18 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// VEC values of T (4 bytes for float, 2 for bf16) from global to shared
-// memory, or zeros where `ok` is false: 16 or 4 bytes by cp.async
-// (src-size 0: nothing is read), or one bf16 by its thread.
-template <typename T, int VEC>
-__device__ __forceinline__ void copy_async(T* dst, const T* src, bool ok) {
-  constexpr int bytes = VEC * static_cast<int>(sizeof(T));
+// VEC floats (4 or 1) from global to shared memory by cp.async, or zeros
+// where `ok` is false (src-size 0: nothing is read).
+template <int VEC>
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool ok) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if constexpr (bytes == 16) {
+  if constexpr (VEC == 4) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                  "r"(ok ? 16 : 0));
-  } else if constexpr (bytes == 4) {
+  } else {
+    static_assert(VEC == 1, "a copy moves 16 or 4 bytes");
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                  "r"(ok ? 4 : 0));
-  } else {
-    static_assert(bytes == 2, "a copy moves 16, 4 or 2 bytes");
-    *dst = ok ? __ldg(src) : T(0);
   }
 }
 
@@ -294,42 +258,14 @@ __host__ __device__ inline int stage_floats(int stage_rows, int nb, int kb) {
   return positions * (kBm + kRowPad) + (positions + kb - 1) * (kBn + kRowPad);
 }
 
-// bf16 values of one stage of the bf16 kernel: dy [P][kBmBf16 + 8], then
-// z [P + KB - 1][kBn + 8]; a multiple of 8, so every stage and both of its
-// operands start 16-byte aligned.
-__host__ __device__ inline int stage_values_bf16(int stage_rows, int nb, int kb) {
-  const int positions = stage_rows * (nb + kb - 1);
-  return positions * (kBmBf16 + kRowPadBf16) + (positions + kb - 1) * (kBn + kRowPadBf16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 matrices of bf16 from shared memory, each transposed: lanes
-// 8i .. 8i + 7 give the addresses of matrix i's 8 rows (16 bytes each),
-// and lane 4g + t receives, in r[i], rows 2t (low half) and 2t + 1 (high
-// half) of its column g.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* row) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
 // Copies one operand of the rows [pos0, pos0 + npos) (flat (row, block)
 // positions; those at or past pos_end are zero-filled) into a stage:
 // block n of row rr to position rr*nbp + n + shift, `width` channels from
-// channel c0 of `src`'s `channels`, VEC values a copy, rows of WIDTH + PAD
-// values.  Each thread keeps one channel offset and walks the positions
-// without dividing.
-template <int WIDTH, int VEC, int PAD = kRowPad, typename T = float>
-__device__ __forceinline__ void load_operand(T* dst, const T* src, int channels, int c0,
+// channel c0 of `src`'s `channels`, VEC floats a copy, rows of WIDTH +
+// kRowPad floats.  Each thread keeps one channel offset and walks the
+// positions without dividing.
+template <int WIDTH, int VEC>
+__device__ __forceinline__ void load_operand(float* dst, const float* src, int channels, int c0,
                                              long long pos0, long long pos_end, int npos,
                                              int nb, int nbp, int shift) {
   constexpr int per_pos = WIDTH / VEC, step = kThreads / per_pos;
@@ -338,10 +274,10 @@ __device__ __forceinline__ void load_operand(T* dst, const T* src, int channels,
   int q = threadIdx.x / per_pos;
   int rr = q / nb, n = q - rr * nb;
   const bool col_ok = c0 + c < channels;
-  const T* from = src + (pos0 + q) * channels + c0 + c;
+  const float* from = src + (pos0 + q) * channels + c0 + c;
   for (; q < npos; q += step) {
     const bool ok = col_ok && pos0 + q < pos_end;
-    copy_async<T, VEC>(dst + (rr * nbp + n + shift) * (WIDTH + PAD) + c, ok ? from : src, ok);
+    copy_async<VEC>(dst + (rr * nbp + n + shift) * (WIDTH + kRowPad) + c, ok ? from : src, ok);
     from += static_cast<long long>(step) * channels;
     for (n += step; n >= nb; n -= nb) ++rr;
   }
@@ -354,36 +290,12 @@ __device__ __forceinline__ void load_stage(const Params& p, float* ds, float* zs
                                            long long r_end, int nbp, int co0, int ci0) {
   const long long pos0 = r0 * p.nb, pos_end = r_end * p.nb;
   const int npos = p.stage_rows * p.nb;
-  const float* dy = static_cast<const float*>(p.dy);
-  const float* z = static_cast<const float*>(p.z);
   if (p.vec == 4) {
-    load_operand<kBm, 4>(ds, dy, p.co, co0, pos0, pos_end, npos, p.nb, nbp, 0);
-    load_operand<kBn, 4>(zs, z, p.ci, ci0, pos0, pos_end, npos, p.nb, nbp, p.dc);
+    load_operand<kBm, 4>(ds, p.dy, p.co, co0, pos0, pos_end, npos, p.nb, nbp, 0);
+    load_operand<kBn, 4>(zs, p.z, p.ci, ci0, pos0, pos_end, npos, p.nb, nbp, p.dc);
   } else {
-    load_operand<kBm, 1>(ds, dy, p.co, co0, pos0, pos_end, npos, p.nb, nbp, 0);
-    load_operand<kBn, 1>(zs, z, p.ci, ci0, pos0, pos_end, npos, p.nb, nbp, p.dc);
-  }
-}
-
-// load_stage for bf16 operands (raw 16-bit values), rows of kBmBf16 + 8
-// and kBn + 8 values.
-__device__ __forceinline__ void load_stage_bf16(const Params& p, uint16_t* ds, uint16_t* zs,
-                                                long long r0, long long r_end, int nbp, int co0,
-                                                int ci0) {
-  const long long pos0 = r0 * p.nb, pos_end = r_end * p.nb;
-  const int npos = p.stage_rows * p.nb;
-  const uint16_t* dy = static_cast<const uint16_t*>(p.dy);
-  const uint16_t* z = static_cast<const uint16_t*>(p.z);
-  constexpr int P = kRowPadBf16;
-  if (p.vec == 8) {
-    load_operand<kBmBf16, 8, P>(ds, dy, p.co, co0, pos0, pos_end, npos, p.nb, nbp, 0);
-    load_operand<kBn, 8, P>(zs, z, p.ci, ci0, pos0, pos_end, npos, p.nb, nbp, p.dc);
-  } else if (p.vec == 2) {
-    load_operand<kBmBf16, 2, P>(ds, dy, p.co, co0, pos0, pos_end, npos, p.nb, nbp, 0);
-    load_operand<kBn, 2, P>(zs, z, p.ci, ci0, pos0, pos_end, npos, p.nb, nbp, p.dc);
-  } else {
-    load_operand<kBmBf16, 1, P>(ds, dy, p.co, co0, pos0, pos_end, npos, p.nb, nbp, 0);
-    load_operand<kBn, 1, P>(zs, z, p.ci, ci0, pos0, pos_end, npos, p.nb, nbp, p.dc);
+    load_operand<kBm, 1>(ds, p.dy, p.co, co0, pos0, pos_end, npos, p.nb, nbp, 0);
+    load_operand<kBn, 1>(zs, p.z, p.ci, ci0, pos0, pos_end, npos, p.nb, nbp, p.dc);
   }
 }
 
@@ -523,124 +435,6 @@ __global__ void __launch_bounds__(kThreads, min_blocks(KB)) dw_mma_kernel(const 
             for (int c = 0; c < 4; ++c) {
               const int o = co0 + warp_co + 2 * WM * g + 2 * i + (c >> 1);
               const int k = ci0 + warp_ci + WN * (2 * t + (c & 1)) + j;
-              if (o < p.co && k < p.ci) {
-                float* dst = out + (static_cast<long long>(d) * p.ci + k) * p.co + o;
-                *dst = first ? acc[d][i][j][c] : *dst + acc[d][i][j][c];
-              }
-              acc[d][i][j][c] = 0.f;
-            }
-    }
-    __syncthreads();  // the next iteration's copies overwrite this stage
-  }
-}
-
-// The bf16 mode of dw_mma_kernel: the same stages, halos, splits and
-// flushes, on bf16 operands, with fragments from ldmatrix.x4.trans and
-// mma.sync.m16n8k16.  A block covers 64 co by 32 ci, a warp 32 co by 16
-// ci: its m16 fragment i's rows g and g + 8 are co 16i + g and 16i + g +
-// 8, and n8 fragment j's column g is ci 8j + g, as mma's C layout has them.
-template <int KB>
-__global__ void __launch_bounds__(kThreads, min_blocks(KB)) dw_bf16_kernel(const Params p) {
-  constexpr int ldm = kBmBf16 + kRowPadBf16, ldn = kBn + kRowPadBf16;
-  extern __shared__ __align__(16) uint16_t smb[];
-  const int nbp = p.nb + KB - 1;
-  const int P = p.stage_rows * nbp;  // K positions per stage, a multiple of 16
-  const int sv = stage_values_bf16(p.stage_rows, p.nb, KB);
-  const int ci0 = blockIdx.x * kBn;
-  const int co0 = blockIdx.y * kBmBf16;
-  const long long r_begin = static_cast<long long>(blockIdx.z) * p.rows_per_split;
-  const long long r_end = r_begin + p.rows_per_split < p.rows ? r_begin + p.rows_per_split : p.rows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // the fragments' groupID, thread in group
-  const int warp_co = (warp / kWarpsN) * 32;
-  const int warp_ci = (warp % kWarpsN) * 16;
-
-  // Zero the halos and pads of both stages once (as dw_mma_kernel).
-  if constexpr (KB > 1) {
-    for (int b = 0; b < 2; ++b) {
-      uint16_t* ds = smb + b * sv;
-      uint16_t* zs = ds + P * ldm;
-      for (int i = threadIdx.x; i < p.stage_rows * (KB - 1) * ldm; i += kThreads) {
-        const int q = i / ldm, c = i - q * ldm;
-        const int rr = q / (KB - 1), h = q - rr * (KB - 1);
-        ds[(rr * nbp + p.nb + h) * ldm + c] = 0;
-      }
-      for (int i = threadIdx.x; i < (p.stage_rows + 1) * (KB - 1) * ldn; i += kThreads) {
-        const int q = i / ldn, c = i - q * ldn;
-        const int rr = q / (KB - 1), h = q - rr * (KB - 1);
-        const int pos = rr < p.stage_rows ? rr * nbp + (h < p.dc ? h : p.nb + h) : P + h;
-        zs[pos * ldn + c] = 0;
-      }
-    }
-  }
-
-  float acc[KB][2][2][4];
-#pragma unroll
-  for (int d = 0; d < KB; ++d)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[d][i][j][c] = 0.f;
-  float* out = p.part + static_cast<long long>(blockIdx.z) * KB * p.ci * p.co;
-
-  // This lane's row of the ldmatrix.x4 matrices.  dy's, for m16 fragment
-  // i, are (k 0-7, co 0-7), (k 0-7, co 8-15), (k 8-15, co 0-7), (k 8-15,
-  // co 8-15) from co 16i: mma's a0..a3.  z's are (k 0-7, ci 0-7), (k 8-15,
-  // ci 0-7), (k 0-7, ci 8-15), (k 8-15, ci 8-15): b0, b1 of n8 fragment 0,
-  // then of fragment 1.
-  const int mat = lane >> 3, row = lane & 7;
-  const int a_off = (row + (mat >> 1) * 8) * ldm + warp_co + (mat & 1) * 8;
-  const int b_off = (row + (mat & 1) * 8) * ldn + warp_ci + (mat >> 1) * 8;
-
-  const int n_stages = static_cast<int>((r_end - r_begin + p.stage_rows - 1) / p.stage_rows);
-  const int flush_stages = kFlushPositions / P > 0 ? kFlushPositions / P : 1;
-  load_stage_bf16(p, smb, smb + P * ldm, r_begin, r_end, nbp, co0, ci0);
-  copy_commit();
-  for (int s = 0; s < n_stages; ++s) {
-    if (s + 1 < n_stages) {
-      uint16_t* nxt = smb + ((s + 1) & 1) * sv;
-      load_stage_bf16(p, nxt, nxt + P * ldm,
-                      r_begin + static_cast<long long>(s + 1) * p.stage_rows, r_end, nbp, co0,
-                      ci0);
-      copy_commit();
-      copy_wait<1>();
-    } else {
-      copy_wait<0>();
-    }
-    __syncthreads();  // this stage (and, at s = 0, the zeroed halos) is visible
-    const uint16_t* ds = smb + (s & 1) * sv + a_off;
-    const uint16_t* zs = smb + (s & 1) * sv + P * ldm + b_off;
-    for (int k0 = 0; k0 < P; k0 += 16) {
-      uint32_t a[2][4];
-      ldmatrix_x4_trans(a[0], ds + k0 * ldm);
-      ldmatrix_x4_trans(a[1], ds + k0 * ldm + 16);
-#pragma unroll
-      for (int d = 0; d < KB; ++d) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, zs + (k0 + d) * ldn);  // tap d: z at position + d
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[d][i][0], a[i], b[0], b[1]);
-          mma_bf16(acc[d][i][1], a[i], b[2], b[3]);
-        }
-      }
-    }
-    // Flush into float32 partial sums (see dw_mma_kernel): C element c of
-    // fragments (i, j) is co 16i + g + 8 (c >> 1), ci 8j + 2t + (c & 1).
-    if ((s + 1) % flush_stages == 0 || s + 1 == n_stages) {
-      const bool first = s < flush_stages;
-#pragma unroll
-      for (int d = 0; d < KB; ++d)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int o = co0 + warp_co + 16 * i + g + (c >> 1) * 8;
-              const int k = ci0 + warp_ci + 8 * j + 2 * t + (c & 1);
               if (o < p.co && k < p.ci) {
                 float* dst = out + (static_cast<long long>(d) * p.ci + k) * p.co + o;
                 *dst = first ? acc[d][i][j][c] : *dst + acc[d][i][j][c];
@@ -1005,8 +799,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // out[d, k, o] = sum over s of part[s, d, k, o], s in increasing order,
-// from scratch [slots, KB, ci_pad, co_pad] (unpadded for the mma.sync
-// kernels, padded to whole tiles for dw_wgmma_kernel).
+// from scratch [slots, KB, ci_pad, co_pad] (unpadded for dw_mma_kernel,
+// padded to whole tiles for dw_wgmma_kernel).
 __global__ void dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int kb,
                                  int ci, int co, int ci_pad, int co_pad, int slots) {
   const long long n = static_cast<long long>(kb) * ci * co;
@@ -1022,23 +816,13 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part, float* __restri
   out[i] = s;
 }
 
-// The partial-sum kernel of the KB instance: dw_mma_kernel (float32) or
-// dw_bf16_kernel.
 template <int KB>
-constexpr auto partial_kernel(bool bf16) {
-  return bf16 ? dw_bf16_kernel<KB> : dw_mma_kernel<KB>;
-}
-
-template <int KB>
-cudaError_t launch_partial(const Params& p, int splits, size_t smem, bool bf16,
-                           cudaStream_t stream) {
-  const auto kernel = partial_kernel<KB>(bf16);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+cudaError_t launch_partial(const Params& p, int splits, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(dw_mma_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int bm = bf16 ? kBmBf16 : kBm;
-  const dim3 grid((p.ci + kBn - 1) / kBn, (p.co + bm - 1) / bm, splits);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((p.ci + kBn - 1) / kBn, (p.co + kBm - 1) / kBm, splits);
+  dw_mma_kernel<KB><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1051,11 +835,10 @@ cudaError_t occupancy_of(Kernel kernel, int threads, int smem, int* blocks) {
                                                        static_cast<size_t>(smem));
 }
 
-// mode 0: dw_mma_kernel, 1: dw_bf16_kernel, 2: dw_wgmma_kernel.
 template <int KB>
-cudaError_t occupancy(int smem, int mode, int* blocks) {
-  if (mode == 2) return occupancy_of(dw_wgmma_kernel<KB>, kWgThreads, smem, blocks);
-  return occupancy_of(partial_kernel<KB>(mode == 1), kThreads, smem, blocks);
+cudaError_t occupancy(int smem, bool wgmma, int* blocks) {
+  if (wgmma) return occupancy_of(dw_wgmma_kernel<KB>, kWgThreads, smem, blocks);
+  return occupancy_of(dw_mma_kernel<KB>, kThreads, smem, blocks);
 }
 
 cudaError_t reduce_slots(const float* part, float* out, int kb, int ci, int co, int ci_pad, int co_pad,
@@ -1142,22 +925,20 @@ cudaError_t launch_wgmma(const CUtensorMap& zmap, const CUtensorMap& dymap, cons
 
 }  // namespace
 
-// Bytes of shared memory one block takes (two stages), float32 (bf16 = 0)
-// or bf16 (bf16 = 1).
-extern "C" long long blocked_dw_smem_bytes(int stage_rows, int nb, int kb, int bf16) {
-  return bf16 ? 2LL * sizeof(uint16_t) * stage_values_bf16(stage_rows, nb, kb)
-              : 2LL * sizeof(float) * stage_floats(stage_rows, nb, kb);
+// Bytes of shared memory one block of dw_mma_kernel takes (two stages).
+extern "C" long long blocked_dw_smem_bytes(int stage_rows, int nb, int kb) {
+  return 2LL * sizeof(float) * stage_floats(stage_rows, nb, kb);
 }
 
-// Blocks of the KB instance of dw_mma_kernel (mode 0), dw_bf16_kernel (1)
-// or dw_wgmma_kernel (2) that one SM holds at `smem` bytes each, into
+// Blocks of the KB instance of dw_mma_kernel (wgmma = 0) or
+// dw_wgmma_kernel (wgmma = 1) that one SM holds at `smem` bytes each, into
 // *blocks.  Returns the CUDA error code (0 on success).
-extern "C" int blocked_dw_blocks_per_sm(int kb, int smem, int mode, int* blocks) {
+extern "C" int blocked_dw_blocks_per_sm(int kb, int smem, int wgmma, int* blocks) {
   cudaError_t err;
   switch (kb) {
-#define DW_OCC(K)                           \
-  case K:                                   \
-    err = occupancy<K>(smem, mode, blocks); \
+#define DW_OCC(K)                                    \
+  case K:                                            \
+    err = occupancy<K>(smem, wgmma != 0, blocks); \
     break;
     DW_OCC(1) DW_OCC(2) DW_OCC(3) DW_OCC(4) DW_OCC(5) DW_OCC(6) DW_OCC(7) DW_OCC(8)
 #undef DW_OCC
@@ -1167,44 +948,33 @@ extern "C" int blocked_dw_blocks_per_sm(int kb, int smem, int mode, int* blocks)
   return static_cast<int>(err);
 }
 
-// dW of one blocked frequency conv on `stream`.  z [rows, nb, ci] and dy
-// [rows, nb, co] contiguous, both float32 (bf16 = 0) or both bf16 (bf16 =
-// 1); out [kb, ci, co] float32.  `part` is
-// scratch of splits * kb * ci * co floats (unused when splits == 1, when
-// the partial kernel writes `out` directly).  Row split s covers rows
-// [s * rows_per_split, (s + 1) * rows_per_split), in stages of stage_rows
-// rows; a block covers 32 co by 32 ci.  Returns the CUDA error code of
-// the launches (0 on success); never synchronises.  (The bf16 instance's
-// blocks cover 64 co by 32 ci.)
-extern "C" int blocked_dw_forward(const void* z, const void* dy, float* out, float* part,
+// dW of one blocked frequency conv on `stream` by dw_mma_kernel.  z
+// [rows, nb, ci] and dy [rows, nb, co] contiguous float32; out [kb, ci,
+// co] float32.  `part` is scratch of splits * kb * ci * co floats (unused
+// when splits == 1, when the partial kernel writes `out` directly).  Row
+// split s covers rows [s * rows_per_split, (s + 1) * rows_per_split), in
+// stages of stage_rows rows; a block covers 32 co by 32 ci.  Returns the
+// CUDA error code of the launches (0 on success); never synchronises.
+extern "C" int blocked_dw_forward(const float* z, const float* dy, float* out, float* part,
                                   long long rows, int nb, int ci, int co, int kb, int dc,
-                                  long long rows_per_split, int splits, int stage_rows, int bf16,
+                                  long long rows_per_split, int splits, int stage_rows,
                                   void* stream) {
   if (rows < 1 || nb < 1 || ci < 1 || co < 1 || kb < 1 || kb > kMaxKb || dc < 0 || dc >= kb ||
       rows_per_split < 1 || splits < 1 || stage_rows < 1 ||
       (splits - 1) * rows_per_split >= rows || splits * rows_per_split < rows ||
-      stage_rows * (nb + kb - 1) % (bf16 ? 16 : 8) != 0)
+      stage_rows * (nb + kb - 1) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto aligned = [&](uintptr_t bytes) {
-    return reinterpret_cast<uintptr_t>(z) % bytes == 0 &&
-           reinterpret_cast<uintptr_t>(dy) % bytes == 0;
-  };
-  int vec;
-  if (bf16)
-    vec = (aligned(16) && ci % 8 == 0 && co % 8 == 0) ? 8
-          : (aligned(4) && ci % 2 == 0 && co % 2 == 0) ? 2
-                                                       : 1;
-  else
-    vec = (aligned(16) && ci % 4 == 0 && co % 4 == 0) ? 4 : 1;
+  const bool aligned = reinterpret_cast<uintptr_t>(z) % 16 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  const int vec = (aligned && ci % 4 == 0 && co % 4 == 0) ? 4 : 1;
   const Params p{z, dy, splits == 1 ? out : part, rows, rows_per_split, nb, ci, co, dc,
                  stage_rows, vec};
-  const size_t smem = static_cast<size_t>(blocked_dw_smem_bytes(stage_rows, nb, kb, bf16));
+  const size_t smem = static_cast<size_t>(blocked_dw_smem_bytes(stage_rows, nb, kb));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (kb) {
-#define DW_CASE(K)                                         \
-  case K:                                                  \
-    err = launch_partial<K>(p, splits, smem, bf16 != 0, s); \
+#define DW_CASE(K)                                 \
+  case K:                                          \
+    err = launch_partial<K>(p, splits, smem, s); \
     break;
     DW_CASE(1) DW_CASE(2) DW_CASE(3) DW_CASE(4) DW_CASE(5) DW_CASE(6) DW_CASE(7) DW_CASE(8)
 #undef DW_CASE

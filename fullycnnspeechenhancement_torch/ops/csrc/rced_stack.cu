@@ -79,43 +79,26 @@
 //   further.
 //
 // The bf16 operand mode (the JAX kernel's dtype="bfloat16": weights and
-// matmul operands in bf16, slabs, biases and sums in float32) is the same
-// kernel with another layer body, conv_layer_bf16:
-// - mma.sync.m16n8k16 with bf16 operands and float32 accumulators, one
-//   product per tile and no split.  A bf16 x bf16 product is exact in
-//   float32, so the result differs from the plain version only in the
-//   order of its float32 sums.
-// - The weights are rounded to bf16 on the host and stored in fragment
-//   order, 8 bytes a lane of a (k16, n8) tile.
-// - Activations stay float32 in shared memory, as the JAX kernel keeps its
-//   slabs float32: the skip, the residual and the next layer's bias and
-//   ReLU read unrounded values.  Each A value is rounded to bf16 (to
-//   nearest even, as torch's cast) when its fragment is loaded.
-// - Within a k16 chunk, mma's k = 2t, 2t + 1, 2t + 8 and 2t + 9 stand for
-//   the chunk's k = t, t + 4, t + 8 and t + 12 (the packing on the host
-//   follows), so each of a lane's four A loads reads four consecutive k,
-//   and the bank argument of the float32 body holds unchanged.
+// matmul operands in bf16, slabs, biases and sums in float32) is a second
+// kernel, rced_stack_wgmma_kernel: products exact in float32, sums in
+// float32, bias, skip, ReLU and residual on float32 values, built for
+// Hopper.  ops/rced_stack.py packs it for every model whose shapes it
+// takes (all of V1/V2/V3) and refuses a bf16 pack of any other.
 // The bound of this mode at V2 64 x 8 s: the same 2.3781e11 FLOP at the
 // data sheet's 989 TFLOP/s dense bf16 rate, 0.240 ms, against 0.1 ms of
-// device memory.  On an H100 this body ran at 12% of the floor its
-// mma.sync tiles set (chip_smoke.py): per k16 chunk a lane waits on four
-// dependent loads of the offset table, eight float32 loads and four
-// conversions before its two to four mma, every activation is rounded
-// again for every tap and m tile that reads it, and every warp fetches
-// the same B fragments.  So every bf16 pack whose shapes fit takes the
-// kernel below; conv_layer_bf16 serves the others, and
-// rced_stack_forward's bf16 = 1 keeps it callable by name.
-//
-// The bf16 mode on wgmma, rced_stack_wgmma_kernel: the same function
-// (products exact in float32, sums in float32, bias, skip, ReLU and
-// residual on float32 values), built for Hopper.
+// device memory.  On an H100 the float32 kernel above with a bf16 layer
+// body (mma.sync.m16n8k16, each A value rounded to bf16 as its fragment
+// loaded) ran at 12% of the floor its tiles set: per k16 chunk a lane
+// waited on four dependent loads of the offset table, eight float32 loads
+// and four conversions before its two to four mma, every activation was
+// rounded again for every tap and m tile that read it, and every warp
+// fetched the same B fragments.  This kernel answers each of those:
 // - A bf16 operand copy of each layer's input, the shadow, written once:
 //   the input load, and the epilogue of the layer before, write each value
-//   rounded by cvt.rn (as conv_layer_bf16 rounds each fragment, and as
-//   ops/rced_stack.py::_as_operand does) into [channel group of 8][bin
-//   row][8 channels], 16 bytes a row.  A tap's shift of j - lo bins then
-//   moves a row address by 16 bytes, so no offset table and no conversion
-//   is left in the products' loop.  A group has kWgRows = 135 rows: bins
+//   rounded by cvt.rn (as ops/rced_stack.py::_as_operand does) into
+//   [channel group of 8][bin row][8 channels], 16 bytes a row.  A tap's
+//   shift of j - lo bins then moves a row address by 16 bytes, so no
+//   offset table and no conversion is left in the products' loop.  A group has kWgRows = 135 rows: bins
 //   0..128, then 6 zero rows that are the next group's left halo (kWgLead
 //   zero rows precede group 0).  Nothing writes past bin 128, so a block
 //   zeroes its shadows once, not every frame.  Layer l reads shadow l % 2
@@ -314,47 +297,6 @@ __device__ __forceinline__ void conv_layer(const float* in, float* out, const fl
   store_layer<NT>(acc, out, skip, add, relu, bias, cout, warp, lane);
 }
 
-// The bf16 operand mode of conv_layer: `wf` holds the layer's B fragments
-// in bf16, [chunk][NT][lane] pairs of 32-bit words, word 0 = (k t, k t + 4)
-// and word 1 = (k t + 8, k t + 12) of column g, low half first; `koff` the
-// chunks * 16 A offsets.
-template <int NT>
-__device__ __forceinline__ void conv_layer_bf16(const float* in, float* out, const float* skip,
-                                                const float* add, bool relu,
-                                                const uint2* __restrict__ wf,
-                                                const float* __restrict__ bias,
-                                                const int* __restrict__ koff, int chunks,
-                                                int cout, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const float* a = in + warp * 16 + g;
-#pragma unroll 2
-  for (int c = 0; c < chunks; ++c) {
-    // this lane's k are k0 + t + 4s, s = 0..3: mma's k 2t, 2t + 1, 2t + 8, 2t + 9
-    const int o0 = __ldg(koff + 16 * c + t);
-    const int o1 = __ldg(koff + 16 * c + t + 4);
-    const int o2 = __ldg(koff + 16 * c + t + 8);
-    const int o3 = __ldg(koff + 16 * c + t + 12);
-    uint32_t af[4];
-    af[0] = pack_bf16(a[o0], a[o1]);          // row g
-    af[1] = pack_bf16(a[o0 + 8], a[o1 + 8]);  // row g + 8
-    af[2] = pack_bf16(a[o2], a[o3]);
-    af[3] = pack_bf16(a[o2 + 8], a[o3 + 8]);
-    uint2 b[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) b[n] = __ldg(wf + (c * NT + n) * 32 + lane);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) mma_bf16(acc[n], af, b[n].x, b[n].y);
-  }
-  store_layer<NT>(acc, out, skip, add, relu, bias, cout, warp, lane);
-}
-
-// BF16 selects the layer body: conv_layer (3xTF32) or conv_layer_bf16.
-template <bool BF16>
 __global__ void __launch_bounds__(kThreads, 2)
 rced_stack_kernel(const float* __restrict__ x, float* __restrict__ y,
                   const float* __restrict__ weights, const int* __restrict__ koffs,
@@ -387,34 +329,19 @@ rced_stack_kernel(const float* __restrict__ x, float* __restrict__ y,
     const float* skip = r[kSkipOff] >= 0 ? sm + r[kSkipOff] : nullptr;
     const float* add = r[kAddOff] >= 0 ? sm + r[kAddOff] : nullptr;
     const int nt = r[kNTiles];
-    const int words = BF16 ? 64 : 128;  // 32-bit words of one tile's fragments
-    const float* bias = weights + r[kWOff] + r[kChunks] * nt * words;
+    const float* bias = weights + r[kWOff] + r[kChunks] * nt * 128;  // 128 words a tile's fragments
     const int* koff = koffs + r[kKOff];
     const bool relu = r[kRelu] != 0;
-    if constexpr (BF16) {
-      const uint2* wf = reinterpret_cast<const uint2*>(weights + r[kWOff]);
-      switch (nt) {
-#define RCED_CASE(N)                                                                          \
-  case N:                                                                                     \
-    conv_layer_bf16<N>(in, out, skip, add, relu, wf, bias, koff, r[kChunks], r[kCout], warp,  \
-                       lane);                                                                 \
-    break;
-        RCED_CASE(1) RCED_CASE(2) RCED_CASE(3) RCED_CASE(4)
-#undef RCED_CASE
-        default: break;  // rejected on the host
-      }
-    } else {
-      const float4* wf = reinterpret_cast<const float4*>(weights + r[kWOff]);
-      switch (nt) {
+    const float4* wf = reinterpret_cast<const float4*>(weights + r[kWOff]);
+    switch (nt) {
 #define RCED_CASE(N)                                                                     \
   case N:                                                                                \
     conv_layer<N>(in, out, skip, add, relu, wf, bias, koff, r[kChunks], r[kCout], warp,  \
                   lane);                                                                 \
     break;
-        RCED_CASE(1) RCED_CASE(2) RCED_CASE(3) RCED_CASE(4)
+      RCED_CASE(1) RCED_CASE(2) RCED_CASE(3) RCED_CASE(4)
 #undef RCED_CASE
-        default: break;  // rejected on the host
-      }
+      default: break;  // rejected on the host
     }
     __syncthreads();
   }
@@ -427,33 +354,8 @@ rced_stack_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
-template <bool BF16>
 cudaError_t set_smem(int smem) {
-  return cudaFuncSetAttribute(rced_stack_kernel<BF16>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <bool BF16>
-int occupancy(int smem_bytes, int* blocks) {
-  cudaError_t err = set_smem<BF16>(smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, rced_stack_kernel<BF16>, kThreads, static_cast<size_t>(smem_bytes)));
-}
-
-template <bool BF16>
-int launch(const float* x, float* y, const float* weights, const int* koffs, const Plan& plan,
-           int n_layers, int batch, int frames, int c_in, int c_out, int in_off, int out_off,
-           int smem_floats, void* stream) {
-  const int smem = static_cast<int>(sizeof(float)) * smem_floats;
-  cudaError_t err = set_smem<BF16>(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(batch) * frames;
-  if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  rced_stack_kernel<BF16><<<static_cast<int>(total), kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, y, weights, koffs, plan, n_layers, frames, c_in, c_out, in_off, out_off, smem_floats);
-  return static_cast<int>(cudaGetLastError());
+  return cudaFuncSetAttribute(rced_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 // ---- rced_stack_wgmma_kernel -------------------------------------------------
@@ -907,25 +809,26 @@ int wgmma_occupancy(int smem_bytes, int* blocks) {
 
 }  // namespace
 
-// Blocks of the float32 (bf16 = 0) or bf16 (bf16 = 1) instance one SM
-// holds at `smem_bytes` of dynamic shared memory each, into *blocks.
-// Returns the CUDA error code (0 on success).
-extern "C" int rced_stack_blocks_per_sm(int smem_bytes, int bf16, int* blocks) {
-  return bf16 ? occupancy<true>(smem_bytes, blocks) : occupancy<false>(smem_bytes, blocks);
+// Blocks of rced_stack_kernel one SM holds at `smem_bytes` of dynamic
+// shared memory each, into *blocks.  Returns the CUDA error code (0 on
+// success).
+extern "C" int rced_stack_blocks_per_sm(int smem_bytes, int* blocks) {
+  cudaError_t err = set_smem(smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, rced_stack_kernel, kThreads, static_cast<size_t>(smem_bytes)));
 }
 
 // Launches the stack on `stream` for `batch` x `frames` frames, one block
-// per frame, in 3xTF32 (bf16 = 0) or with bf16 operands (bf16 = 1).
-// `plan_rows` is a host array of n_layers x 10 ints (see Field).
-// `weights` holds each layer's B fragments (float32 or bf16, see
-// conv_layer and conv_layer_bf16) and then its n_tiles * 8 float32 biases;
-// `koffs` each layer's chunks * 8 (float32) or chunks * 16 (bf16) A
-// offsets.  Returns the CUDA error code of the launch (0 on success);
-// never synchronises.
+// per frame, in 3xTF32.  `plan_rows` is a host array of n_layers x 10
+// ints (see Field).  `weights` holds each layer's B fragments (see
+// conv_layer) and then its n_tiles * 8 float32 biases; `koffs` each
+// layer's chunks * 8 A offsets.  Returns the CUDA error code of the launch
+// (0 on success); never synchronises.
 extern "C" int rced_stack_forward(const float* x, float* y, const float* weights,
                                   const int* koffs, const int* plan_rows, int n_layers, int batch,
                                   int frames, int c_in, int c_out, int in_off, int out_off,
-                                  int smem_floats, int bf16, void* stream) {
+                                  int smem_floats, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || batch < 1 || frames < 1 || smem_floats < 4 ||
       smem_floats % 4 != 0 || reinterpret_cast<uintptr_t>(weights) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -935,13 +838,17 @@ extern "C" int rced_stack_forward(const float* x, float* y, const float* weights
   for (int l = 0; l < n_layers; ++l) {
     const int* r = plan.rec[l];
     if (r[kChunks] < 1 || r[kNTiles] < 1 || r[kNTiles] > kMaxNTiles || r[kCout] < 1 ||
-        r[kCout] > 8 * r[kNTiles] || r[kWOff] % (bf16 ? 2 : 4) != 0)
+        r[kCout] > 8 * r[kNTiles] || r[kWOff] % 4 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return bf16 ? launch<true>(x, y, weights, koffs, plan, n_layers, batch, frames, c_in, c_out,
-                             in_off, out_off, smem_floats, stream)
-              : launch<false>(x, y, weights, koffs, plan, n_layers, batch, frames, c_in, c_out,
-                              in_off, out_off, smem_floats, stream);
+  const int smem = static_cast<int>(sizeof(float)) * smem_floats;
+  cudaError_t err = set_smem(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(batch) * frames;
+  if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  rced_stack_kernel<<<static_cast<int>(total), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, y, weights, koffs, plan, n_layers, frames, c_in, c_out, in_off, out_off, smem_floats);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* rced_stack_error_string(int code) {

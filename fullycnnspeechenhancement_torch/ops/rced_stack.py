@@ -32,16 +32,14 @@ products are exact and summed in float32, and the slabs, biases, skips and
 residuals stay float32.  Layer 1 and the last projection stay float32,
 as in JAX, through the same edge kernels.  Its kernel is
 `rced_stack_wgmma_kernel` (`pack_wgmma`: each layer's chunk of B tiles,
-biases and A descriptor table, and the block's shared-memory map) wherever
-`wgmma_layout` takes the shapes, as it takes every V1/V2/V3 pack
-(`takes_wgmma`); other bf16 packs run the earlier `mma.sync` body,
-`conv_layer_bf16` (`pack_fragments_bf16`), which `stack_forward_mma_sync`
-also reaches by name.
+biases and A descriptor table, and the block's shared-memory map), which
+takes every model whose shapes `wgmma_layout` takes, as it takes every
+V1/V2/V3; `pack_inference_stack` refuses a bf16 pack of any other.
 
 `stack_forward` is the kernels' wrapper: on a CPU tensor it runs
 `stack_forward_plain`, the same arithmetic in plain torch; on a CUDA tensor
-it launches the kernel (building it on first use) or raises.  `launches`,
-`launches_bf16` (conv_layer_bf16) and `launches_bf16_wgmma` count kernel
+it launches the kernel of the pack's mode (building it on first use) or
+raises.  `launches` (3xTF32) and `launches_bf16_wgmma` count kernel
 launches.
 """
 
@@ -71,7 +69,6 @@ M_PAD = 16 * M_TILES
 THREADS = 32 * M_TILES
 N_TILE = 8  # output channels per n8 tile
 K_CHUNK = 8  # K per mma (m16n8k8)
-K_CHUNK_BF16 = 16  # K per mma of the bf16 mode (m16n8k16)
 DTYPES = ("float32", "bfloat16")
 MAX_KW = 13
 MAX_LAYERS = 16
@@ -111,10 +108,9 @@ WG_BARRIER_BYTES = 16  # two mbarriers, one for each weight buffer
 # weights are zero): 0, it reads its first block again.
 WG_PAD_LBO = 0
 
-# Kernel launches since the counts were last set to 0: the 3xTF32
-# instance, the bf16 mma.sync one (conv_layer_bf16) and the bf16 wgmma one.
+# Kernel launches since the counts were last set to 0: the 3xTF32 kernel
+# and the bf16 wgmma one.
 launches = 0
-launches_bf16 = 0
 launches_bf16_wgmma = 0
 
 _lib: Optional[ctypes.CDLL] = None
@@ -138,8 +134,9 @@ def fold_bn_inference(model: ModelDef, params, bn_state):
 
 @dataclasses.dataclass(frozen=True)
 class InnerLayer:
-    """One inner layer as the kernel sees it.  Row offsets count channel
-    rows of ROW floats in a block's shared memory; -1 means no tap."""
+    """One inner layer as the 3xTF32 kernel sees it.  Row offsets count
+    channel rows of ROW floats in a block's shared memory; -1 means no tap,
+    or, in a bf16 pack, which that kernel never reads, not placed."""
 
     name: str
     kw: int
@@ -148,13 +145,12 @@ class InnerLayer:
     skip_from: Optional[str]
     add_from: Optional[str]
     use_act: bool
-    w_off: int  # floats into PackedStack.weights: B fragments, then biases
-    k_off: int  # ints into PackedStack.koffs: chunks * k_chunk A offsets
+    w_off: int = -1  # floats into PackedStack.weights: B fragments, then biases
+    k_off: int = -1  # ints into PackedStack.koffs: chunks * 8 A offsets
     in_row: int = -1
     out_row: int = -1
     skip_row: int = -1
     add_row: int = -1
-    k_chunk: int = K_CHUNK  # K_CHUNK_BF16 in the bf16 mode
 
     @property
     def k(self) -> int:
@@ -162,7 +158,7 @@ class InnerLayer:
 
     @property
     def chunks(self) -> int:
-        return -(-self.k // self.k_chunk)
+        return -(-self.k // K_CHUNK)
 
     @property
     def n_tiles(self) -> int:
@@ -170,29 +166,28 @@ class InnerLayer:
 
     @property
     def b_off(self) -> int:
-        # a lane's fragment of one tile: 4 float32 words (3xTF32), or 2
-        # words of two bf16 each
-        words = 4 if self.k_chunk == K_CHUNK else 2
-        return self.w_off + self.chunks * self.n_tiles * 32 * words
+        # a lane's fragment of one tile: 4 float32 words
+        return self.w_off + self.chunks * self.n_tiles * 32 * 4
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class PackedStack:
-    """A model's BN-folded weights, packed once for `fused_inference_forward`."""
+    """A model's BN-folded weights, packed once for `fused_inference_forward`:
+    for the 3xTF32 kernel (`dtype` "float32": `weights` to `smem_rows`) or
+    for the bf16 wgmma kernel ("bfloat16": `wg`)."""
 
     first: Tuple[ConvSpec, torch.Tensor, torch.Tensor]  # layer 1, OIHW
     last: Tuple[ConvSpec, torch.Tensor, torch.Tensor]  # final projection
     layers: Tuple[InnerLayer, ...]
     folded: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # inner (w [cin, kw, cout], b)
-    weights: torch.Tensor  # the kernel's B fragments and biases, float32 words
-    koffs: torch.Tensor  # the kernel's A offsets, int32
-    plan: np.ndarray  # [n_layers, 10] int32, the kernel's layer table
-    in_row: int
-    out_row: int
-    smem_rows: int
     dtype: str = "float32"  # the operand mode, one of DTYPES
-    # the bf16 wgmma kernel's pack, where `wgmma_layout` takes the shapes
-    wg: Optional["WgmmaStack"] = None
+    weights: Optional[torch.Tensor] = None  # the kernel's B fragments and biases, float32 words
+    koffs: Optional[torch.Tensor] = None  # the kernel's A offsets, int32
+    plan: Optional[np.ndarray] = None  # [n_layers, 10] int32, the kernel's layer table
+    in_row: int = -1
+    out_row: int = -1
+    smem_rows: int = 0
+    wg: Optional["WgmmaStack"] = None  # the bf16 wgmma kernel's pack
     # layer 1 and the projection for their kernels (`rced_edges.pack_edges`)
     edges: Optional[rced_edges.EdgePack] = None
 
@@ -250,23 +245,23 @@ def _allocate_rows(layers, c_in, epilogue_reads_only=False):
     return where, used
 
 
-def tap_offsets(cin: int, kw: int, k_chunk: int = K_CHUNK) -> np.ndarray:
-    """The kernel's A offsets of one layer, [chunks * k_chunk] int32: k =
+def tap_offsets(cin: int, kw: int) -> np.ndarray:
+    """The kernel's A offsets of one layer, [chunks * 8] int32: k =
     j * cin + ci (tap-outer, channel-inner) reads channel ci's row at tap
     j, so A[m, k] = in[offset[k] + m] with offset[k] = ci * ROW + HALO - lo
     + j; the padded k past cin * kw repeat the last offset (their weights
     are zero, and a repeated address is a broadcast, not a bank conflict)."""
     lo = (kw - 1) // 2
-    k = np.minimum(np.arange(-(-cin * kw // k_chunk) * k_chunk), cin * kw - 1)
+    k = np.minimum(np.arange(-(-cin * kw // K_CHUNK) * K_CHUNK), cin * kw - 1)
     j, ci = np.divmod(k, cin)
     return (ci * ROW + HALO - lo + j).astype(np.int32)
 
 
-def gemm_weights(w: torch.Tensor, chunks: int, n_tiles: int, k_chunk: int = K_CHUNK) -> torch.Tensor:
-    """w [cin, kw, cout] -> the layer's B [chunks * k_chunk, n_tiles * 8]:
-    row j * cin + ci holds w[ci, j], zeros past K and cout."""
+def gemm_weights(w: torch.Tensor, chunks: int, n_tiles: int) -> torch.Tensor:
+    """w [cin, kw, cout] -> the layer's B [chunks * 8, n_tiles * 8]: row
+    j * cin + ci holds w[ci, j], zeros past K and cout."""
     cin, kw, cout = w.shape
-    b = torch.zeros(chunks * k_chunk, n_tiles * N_TILE, dtype=torch.float32, device=w.device)
+    b = torch.zeros(chunks * K_CHUNK, n_tiles * N_TILE, dtype=torch.float32, device=w.device)
     b[: cin * kw, :cout] = w.permute(1, 0, 2).reshape(cin * kw, cout)
     return b
 
@@ -298,26 +293,6 @@ def unpack_fragments(frag: torch.Tensor, chunks: int, n_tiles: int):
     parts = frag.view(chunks, n_tiles, N_TILE, 4, 2, 2).permute(4, 0, 5, 3, 1, 2)
     parts = parts.reshape(2, chunks * K_CHUNK, n_tiles * N_TILE)
     return parts[0], parts[1]
-
-
-def pack_fragments_bf16(b: torch.Tensor) -> torch.Tensor:
-    """B [chunks * 16, n_tiles * 8] -> its bf16 fragments for m16n8k16,
-    rounded to nearest even and stored two to a float32 word, flat
-    [chunks, n_tiles, 32 lanes, 2 words]: lane 4g + t of tile (c, n) holds
-    B[16c + t + 4h + 8w, 8n + g] in half h of word w, so its fragment is
-    one 8-byte load and mma's k 2t, 2t + 1, 2t + 8, 2t + 9 stand for the
-    chunk's k t, t + 4, t + 8, t + 12."""
-    kp, np_ = b.shape
-    parts = b.contiguous().to(torch.bfloat16).view(
-        kp // K_CHUNK_BF16, 2, 2, 4, np_ // N_TILE, N_TILE)  # [c, w, h, t, n, g]
-    return parts.permute(0, 4, 5, 3, 1, 2).reshape(-1).contiguous().view(torch.float32)
-
-
-def unpack_fragments_bf16(frag: torch.Tensor, chunks: int, n_tiles: int) -> torch.Tensor:
-    """Inverse of `pack_fragments_bf16`: -> B [chunks * 16, n_tiles * 8],
-    bfloat16."""
-    parts = frag.contiguous().view(torch.bfloat16).view(chunks, n_tiles, N_TILE, 4, 2, 2)
-    return parts.permute(0, 4, 5, 3, 1, 2).reshape(chunks * K_CHUNK_BF16, n_tiles * N_TILE)
 
 
 # -- the bf16 kernel on wgmma ---------------------------------------------------
@@ -515,16 +490,17 @@ def pack_wgmma(layers, plain, c_in) -> Optional[WgmmaStack]:
 
 
 def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float32") -> PackedStack:
-    """Fold BN and pack the inner layers' weights and plan for the kernel,
-    in 3xTF32 fragments (`dtype="float32"`) or bf16 ones ("bfloat16").
+    """Fold BN and pack the inner layers for the kernel of `dtype`: the
+    3xTF32 kernel's fragments, offsets and plan ("float32"), or the wgmma
+    kernel's pack (`pack_wgmma`, "bfloat16").
 
     Inner layers must be (1, kw <= 13) convs over 129 bins with at most 32
-    output channels; at most 16 of them, whose live taps fit one block's
-    shared memory.  Layer 1 and the projection must be edges the edge
-    kernels take (`rced_edges.pack_edges`)."""
+    output channels, at most 16 of them; in float32 their live taps must
+    fit one block's shared memory, in bf16 `wgmma_layout` must take them.
+    Layer 1 and the projection must be edges the edge kernels take
+    (`rced_edges.pack_edges`)."""
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r}: the stack kernel takes one of {DTYPES}")
-    k_chunk = K_CHUNK if dtype == "float32" else K_CHUNK_BF16
     folded = fold_bn_inference(model, params, bn_state)
     first, last, inner = folded[0], folded[-1], folded[1:-1]
     first_name = first[0].name
@@ -532,7 +508,7 @@ def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float3
         raise ValueError(f"{model.name}: {len(inner)} inner layers, kernel takes 1..{MAX_LAYERS}")
     layers, plain, chunks, koffs = [], [], [], []
     w_off = k_off = 0
-    cin = first[0].out_ch
+    c_in = cin = first[0].out_ch
     for spec, w, b in inner:
         kh, kw = spec.kernel
         if kh != 1 or not 1 <= kw <= MAX_KW:
@@ -544,24 +520,31 @@ def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float3
         def remap(ref):
             return INPUT if ref == first_name else ref
 
-        lay = InnerLayer(
-            spec.name, kw, cin, cout, remap(spec.skip_from), remap(spec.add_from),
-            spec.use_act, w_off, k_off, k_chunk=k_chunk,
-        )
+        lay = InnerLayer(spec.name, kw, cin, cout, remap(spec.skip_from), remap(spec.add_from), spec.use_act)
         w_cko = w[:, :, 0, :].permute(1, 2, 0).contiguous()  # [cin, kw, cout]
         plain.append((w_cko, b))
-        bias = torch.zeros(lay.n_tiles * N_TILE, dtype=torch.float32, device=w.device)
-        bias[:cout] = b
-        gemm = gemm_weights(w_cko, lay.chunks, lay.n_tiles, k_chunk)
-        frag = pack_fragments(gemm) if dtype == "float32" else pack_fragments_bf16(gemm)
-        chunks += [frag, bias]
-        koffs.append(tap_offsets(cin, kw, k_chunk))
+        if dtype == "float32":
+            lay = dataclasses.replace(lay, w_off=w_off, k_off=k_off)
+            bias = torch.zeros(lay.n_tiles * N_TILE, dtype=torch.float32, device=w.device)
+            bias[:cout] = b
+            chunks += [pack_fragments(gemm_weights(w_cko, lay.chunks, lay.n_tiles)), bias]
+            koffs.append(tap_offsets(cin, kw))
+            w_off = lay.b_off + bias.numel()
+            k_off += koffs[-1].size
         layers.append(lay)
-        w_off = lay.b_off + bias.numel()
-        k_off += koffs[-1].size
         cin = cout
+    edges = rced_edges.pack_edges(first, last)
 
-    rows, used = _allocate_rows(layers, first[0].out_ch)
+    if dtype == "bfloat16":
+        wg = pack_wgmma(layers, plain, c_in)
+        if wg is None:
+            raise ValueError(
+                f"{model.name}: the bf16 stack kernel takes layers of at most {MAX_COUT} input and output "
+                f"channels whose block fits {WG_SMEM_BUDGET} B of shared memory (two blocks an SM)")
+        return PackedStack(first=first, last=last, layers=tuple(layers), folded=tuple(plain), dtype=dtype,
+                           wg=wg, edges=edges)
+
+    rows, used = _allocate_rows(layers, c_in)
     if (used * ROW + SMEM_SLACK) * 4 > SMEM_BYTES:
         raise ValueError(f"{model.name}: live taps need {used} rows, over one block's shared memory")
     prev = INPUT
@@ -592,22 +575,17 @@ def pack_inference_stack(model: ModelDef, params, bn_state, dtype: str = "float3
         ],
         dtype=np.int32,
     )
-    device = first[1].device
-    wg = pack_wgmma(layers, plain, first[0].out_ch) if dtype == "bfloat16" else None
-    edges = rced_edges.pack_edges(first, last)
     return PackedStack(
         first=first,
         last=last,
         layers=tuple(placed),
         folded=tuple(plain),
         weights=torch.cat(chunks).contiguous(),
-        koffs=torch.as_tensor(np.concatenate(koffs), device=device),
+        koffs=torch.as_tensor(np.concatenate(koffs), device=first[1].device),
         plan=plan,
         in_row=rows[INPUT],
         out_row=placed[-1].out_row,
         smem_rows=used,
-        dtype=dtype,
-        wg=wg,
         edges=edges,
     )
 
@@ -646,11 +624,10 @@ def stack_forward_plain(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
 
 
 class LaunchPlan(NamedTuple):
-    """How `stack_forward` launches the kernel: one block per frame, of
-    `threads` threads and `smem_bytes` of shared memory, `blocks_per_sm` of
-    them resident on an SM; its mma tiles (m16n8k8 in 3xTF32, m16n8k16 in
-    bf16) compute `padded_product_ratio` times the products the layers
-    need."""
+    """How `stack_forward` launches the 3xTF32 kernel: one block per frame,
+    of `threads` threads and `smem_bytes` of shared memory, `blocks_per_sm`
+    of them resident on an SM; its m16n8k8 tiles compute
+    `padded_product_ratio` times the products the layers need."""
 
     threads: int
     smem_bytes: int
@@ -660,10 +637,10 @@ class LaunchPlan(NamedTuple):
 
 
 def padded_product_ratio(packed: PackedStack) -> float:
-    """Products the kernel computes (bins padded to M_PAD, K to the mode's
-    k8 or k16 chunks, cout to n8 tiles) over the products the layers need (tap j meets
-    F_DIM - |j - lo| bins; the rest fall on the zero halo)."""
-    done = sum(M_PAD * lay.chunks * lay.k_chunk * lay.n_tiles * N_TILE for lay in packed.layers)
+    """Products the 3xTF32 kernel computes (bins padded to M_PAD, K to k8
+    chunks, cout to n8 tiles) over the products the layers need (tap j
+    meets F_DIM - |j - lo| bins; the rest fall on the zero halo)."""
+    done = sum(M_PAD * lay.chunks * K_CHUNK * lay.n_tiles * N_TILE for lay in packed.layers)
     return done / frame_macs(packed)
 
 
@@ -675,8 +652,8 @@ def model_blocks_per_sm(smem_bytes: int) -> int:
 
 
 def launch_plan(packed: PackedStack, blocks_per_sm: Optional[int] = None) -> LaunchPlan:
-    """The kernel's launch on `packed`, at `blocks_per_sm` (from
-    `card_blocks_per_sm`) or, when not given, `model_blocks_per_sm`."""
+    """The 3xTF32 kernel's launch on a float32 `packed`, at `blocks_per_sm`
+    (from `card_blocks_per_sm`) or, when not given, `model_blocks_per_sm`."""
     smem = packed.smem_floats * 4
     per_sm = model_blocks_per_sm(smem) if blocks_per_sm is None else blocks_per_sm
     return LaunchPlan(THREADS, smem, per_sm, 1, padded_product_ratio(packed))
@@ -725,10 +702,10 @@ def frame_macs(packed: PackedStack) -> int:
 
 def wgmma_launch_plan(packed: PackedStack, frames: int, blocks_per_sm: Optional[int] = None,
                       sm_count: int = SM_COUNT) -> WgLaunchPlan:
-    """The wgmma kernel's launch on `frames` frames of a pack that
-    `takes_wgmma`, at `blocks_per_sm` (from `card_wgmma_blocks_per_sm`) or,
-    when not given, as shared memory and the SM's 2048 threads allow
-    (registers not modelled), on `sm_count` SMs."""
+    """The wgmma kernel's launch on `frames` frames of a bf16 pack, at
+    `blocks_per_sm` (from `card_wgmma_blocks_per_sm`) or, when not given,
+    as shared memory and the SM's 2048 threads allow (registers not
+    modelled), on `sm_count` SMs."""
     smem = packed.wg.smem_bytes
     if blocks_per_sm is None:
         blocks_per_sm = min(SM_SMEM_BYTES // (smem + 1024), 2048 // WG_THREADS)
@@ -747,12 +724,10 @@ def load_library() -> ctypes.CDLL:
         lib.rced_stack_forward.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.rced_stack_blocks_per_sm.restype = ctypes.c_int
-        lib.rced_stack_blocks_per_sm.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ]
+        lib.rced_stack_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.rced_stack_forward_wgmma.restype = ctypes.c_int
         lib.rced_stack_forward_wgmma.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -772,14 +747,14 @@ def _check(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"rced_stack {what} failed: {lib.rced_stack_error_string(rc).decode()} ({rc})")
 
 
-def card_blocks_per_sm(smem_bytes: int, device: torch.device, dtype: str = "float32") -> int:
-    """Blocks of the kernel's `dtype` instance one SM of `device` holds at
-    `smem_bytes` each, from the CUDA occupancy calculator (registers and
-    shared memory)."""
+def card_blocks_per_sm(smem_bytes: int, device: torch.device) -> int:
+    """Blocks of the 3xTF32 kernel one SM of `device` holds at `smem_bytes`
+    each, from the CUDA occupancy calculator (registers and shared
+    memory)."""
     lib = load_library()
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = lib.rced_stack_blocks_per_sm(smem_bytes, int(dtype == "bfloat16"), ctypes.byref(n))
+        rc = lib.rced_stack_blocks_per_sm(smem_bytes, ctypes.byref(n))
     _check(lib, rc, "occupancy query")
     return n.value
 
@@ -797,13 +772,6 @@ def card_wgmma_blocks_per_sm(smem_bytes: int, device: torch.device) -> int:
     return n.value
 
 
-def takes_wgmma(packed: PackedStack) -> bool:
-    """Whether `stack_forward` launches the bf16 wgmma kernel on `packed`:
-    a bf16 pack whose shapes `wgmma_layout` takes (every V1/V2/V3 pack);
-    other bf16 packs take conv_layer_bf16."""
-    return packed.dtype == "bfloat16" and packed.wg is not None
-
-
 def _checked(packed: PackedStack, x: torch.Tensor):
     """-> (B, T) of a CUDA input the kernels take; raises on anything else."""
     if x.device.type != "cuda":
@@ -815,36 +783,32 @@ def _checked(packed: PackedStack, x: torch.Tensor):
         raise ValueError(
             f"rced_stack wants [B, {packed.c_in}, T, {F_DIM}], got {tuple(x.shape)}"
         )
-    if packed.weights.device != x.device or packed.koffs.device != x.device or (
-            packed.wg is not None and packed.wg.weights.device != x.device):
-        raise ValueError(f"packed weights on {packed.weights.device}, input on {x.device}")
+    held = (packed.weights, packed.koffs) if packed.wg is None else (packed.wg.weights,)
+    if any(t.device != x.device for t in held):
+        raise ValueError(f"packed weights on {held[0].device}, input on {x.device}")
     return B, T
 
 
 def _launch_mma_sync(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
-    """The mma.sync kernel (3xTF32, or conv_layer_bf16 on a bf16 pack)."""
-    global launches, launches_bf16
+    """The 3xTF32 mma.sync kernel on a float32 pack."""
+    global launches
     B, T = _checked(packed, x)
-    bf16 = packed.dtype == "bfloat16"
     lib = load_library()
     out = torch.empty(B, packed.c_out, T, F_DIM, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.rced_stack_forward(
             x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(), packed.koffs.data_ptr(),
             packed.plan.ctypes.data, len(packed.layers), B, T, packed.c_in, packed.c_out,
-            packed.in_row * ROW, packed.out_row * ROW, packed.smem_floats, int(bf16),
+            packed.in_row * ROW, packed.out_row * ROW, packed.smem_floats,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _check(lib, rc, "launch")
-    if bf16:
-        launches_bf16 += 1
-    else:
-        launches += 1
+    launches += 1
     return out
 
 
 def _launch_wgmma(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
-    """The bf16 wgmma kernel on a pack that `takes_wgmma`."""
+    """The bf16 wgmma kernel on a bf16 pack."""
     global launches_bf16_wgmma
     B, T = _checked(packed, x)
     wg = packed.wg
@@ -870,23 +834,12 @@ def stack_forward(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
     in the operand mode `packed` was packed for.
 
     A CPU tensor runs `stack_forward_plain`.  A CUDA tensor launches the
-    CUDA kernel of that mode (in bf16 the wgmma kernel where `takes_wgmma`,
-    else conv_layer_bf16) or raises; it never falls back to the plain
-    version or to the other kernel."""
+    CUDA kernel of that mode (the 3xTF32 kernel in float32, the wgmma
+    kernel in bf16) or raises; it never falls back to the plain version."""
     if x.device.type == "cpu":
         return stack_forward_plain(packed, x)
-    if takes_wgmma(packed):
+    if packed.dtype == "bfloat16":
         return _launch_wgmma(packed, x)
-    return _launch_mma_sync(packed, x)
-
-
-def stack_forward_mma_sync(packed: PackedStack, x: torch.Tensor) -> torch.Tensor:
-    """`stack_forward` through the mma.sync kernel whatever the shapes: a
-    bf16 pack runs conv_layer_bf16 (counted in `launches_bf16`).  No path
-    of the package calls it; chip_smoke.py times and checks that design
-    beside the wgmma kernel."""
-    if x.device.type == "cpu":
-        return stack_forward_plain(packed, x)
     return _launch_mma_sync(packed, x)
 
 

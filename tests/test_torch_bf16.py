@@ -229,87 +229,6 @@ def test_fused_bf16_one_layer_matches_jax(case):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_bf16_fragments_hold_the_rounded_weights_in_lane_order(name):
-    """Each layer's bf16 fragments: lane 4g + t of tile (c, n) holds, in
-    half h of word w, the folded weight of k = 16c + t + 4h + 8w (tap-outer,
-    channel-inner) and channel 8n + g, rounded to bf16 (to nearest even);
-    zeros past K and cout; unpacking inverts packing; the biases follow in
-    float32; the offsets cover chunks * 16 k."""
-    params, bn = params_from_numpy(*numpy_params(name, seed=5, centred_bn=True))
-    packed = rced_stack.pack_inference_stack(get_model(name), params, bn, "bfloat16")
-    assert packed.dtype == "bfloat16"
-    for lay, (w, b) in zip(packed.layers, packed.folded):
-        assert lay.k_chunk == 16 and lay.chunks == -(-lay.k // 16)
-        frag = packed.weights[lay.w_off : lay.b_off]
-        assert frag.numel() == lay.chunks * lay.n_tiles * 32 * 2
-        want = torch.zeros(lay.chunks * 16, lay.n_tiles * 8)
-        for j in range(lay.kw):
-            want[j * lay.cin : (j + 1) * lay.cin, : lay.cout] = w[:, j]
-        want = want.to(BF16)
-        lanes = frag.view(BF16).view(lay.chunks, lay.n_tiles, 8, 4, 2, 2)  # [c, n, g, t, w, h]
-        c, n, g, t, wd, h = np.meshgrid(*(np.arange(s) for s in lanes.shape), indexing="ij")
-        assert torch.equal(lanes, want[16 * c + t + 4 * h + 8 * wd, 8 * n + g])
-        assert torch.equal(rced_stack.unpack_fragments_bf16(frag, lay.chunks, lay.n_tiles), want)
-        bias = packed.weights[lay.b_off : lay.b_off + lay.n_tiles * 8]
-        assert torch.equal(bias[: lay.cout], b) and not bias[lay.cout :].any()
-        koff = packed.koffs[lay.k_off : lay.k_off + lay.chunks * 16].numpy()
-        np.testing.assert_array_equal(koff, rced_stack.tap_offsets(lay.cin, lay.kw, 16))
-
-
-def emulate_bf16_kernel(packed, x):
-    """The bf16 kernel in plain torch, frame by frame in a float32 image of
-    one block's shared memory: A gathered through the offset table (16-k
-    chunks) and rounded to bf16, B from the bf16 fragments, products in
-    float64 (exact) summed into float32, then the kernel's epilogue and
-    write rule (tests/test_torch_rced_stack.py::emulate_kernel)."""
-    from test_torch_rced_stack import HALO, M_PAD, ROW, _writes
-
-    B, C, T, F = x.shape
-    n = B * T
-    sm = torch.zeros(n, packed.smem_floats)
-    data = HALO + torch.arange(F)
-    sm[:, packed.in_row * ROW + torch.arange(C)[:, None] * ROW + data] = x.permute(0, 2, 1, 3).reshape(n, C, F)
-    m = torch.arange(M_PAD)
-    for lay in packed.layers:
-        koff = packed.koffs[lay.k_off : lay.k_off + lay.chunks * 16].long()
-        a = sm[:, lay.in_row * ROW + koff[None, :] + m[:, None]].to(BF16).double()
-        b = rced_stack.unpack_fragments_bf16(packed.weights[lay.w_off : lay.b_off], lay.chunks,
-                                             lay.n_tiles).double()
-        c = (a @ b).float()
-        bias = packed.weights[lay.b_off : lay.b_off + lay.n_tiles * 8]
-        idx, mm, co = (torch.as_tensor(v) for v in _writes(lay))
-        y = c[:, mm, co] + bias[co]
-        if lay.skip_row >= 0:
-            y = y + sm[:, idx - (lay.out_row - lay.skip_row) * ROW]
-        if lay.use_act:
-            y = torch.relu(y)
-        if lay.add_row >= 0:
-            y = y + sm[:, idx - (lay.out_row - lay.add_row) * ROW]
-        sm[:, idx] = y
-    rows_out = packed.out_row * ROW + torch.arange(packed.c_out)[:, None] * ROW + data
-    return sm[:, rows_out].reshape(B, T, packed.c_out, F).permute(0, 2, 1, 3)
-
-
-@pytest.mark.parametrize("name", NAMES)
-def test_emulated_bf16_kernel_matches_plain(name):
-    """The bf16 kernel's K order, padding, rounding and write rule against
-    the plain bf16 mode: one layer at float32's tolerance, whole stacks at
-    a bf16 stack's (BF16_STACK_*)."""
-    params, bn = params_from_numpy(*numpy_params(name, seed=1, centred_bn=True))
-    packed = rced_stack.pack_inference_stack(get_model(name), params, bn, "bfloat16")
-    x = torch.as_tensor(np.random.default_rng(4).random((2, packed.c_in, 20, 129)).astype(np.float32))
-    plain = rced_stack.stack_forward_plain(packed, x)
-    assert_live(plain)
-    assert_bf16_stack_close(emulate_bf16_kernel(packed, x), plain)
-    one = one_layer_model(*ONE_LAYER_CASES[2])
-    p1, b1 = params_from_numpy(*dyadic_params(one, seed=2))
-    packed = rced_stack.pack_inference_stack(one, p1, b1, "bfloat16")
-    x = torch.as_tensor(np.random.default_rng(5).random((2, packed.c_in, 20, 129)).astype(np.float32))
-    ref = rced_stack.stack_forward_plain(packed, x)
-    torch.testing.assert_close(emulate_bf16_kernel(packed, x), ref, rtol=1e-4, atol=1e-5 * ref.abs().max().item())
-
-
 def test_fused_bf16_rejects_a_pack_of_the_other_mode():
     params, bn = params_from_numpy(*numpy_params("FullyCNNV2", seed=0))
     model = get_model("FullyCNNV2")

@@ -208,6 +208,27 @@ def test_staged_3xtf32_matches_plain_within_dw_tol(kb):
         assert err1 > 1.0, (dc, err1)
 
 
+@pytest.mark.parametrize("kb", range(1, blocked_dw.MAX_KB + 1))
+def test_staged_3xtf32_is_exact_on_bf16_values(kb):
+    """The route of a bf16 pair the wgmma kernel does not take (Ci 20, Co
+    14): the 3xTF32 kernel on float32 copies.  A bf16 value is its own
+    TF32 big part, so every small part is zero and the 3xTF32 staging
+    equals the float32 values' products bit for bit in float64, within
+    1e-12 of `blocked_dw_plain` in float64, for every dc."""
+    rng = np.random.default_rng(10 + kb)
+    z = torch.as_tensor(rng.standard_normal((300, 17, 20)).astype(np.float32)).to(torch.bfloat16)
+    dy = torch.as_tensor(rng.standard_normal((300, 17, 14)).astype(np.float32)).to(torch.bfloat16)
+    assert not blocked_dw.takes_wgmma(z[None], dy[None], kb)
+    z32, dy32 = z.float(), dy.float()
+    for x in (z32, dy32):
+        assert not tf32(x - tf32(x, "rz"), "rz").any()
+    for dc in range(kb):
+        ref = blocked_dw.blocked_dw_plain(z.double()[None], dy.double()[None], kb, dc)[0]
+        exact = staged_dw(z32, dy32, kb, dc, 0)
+        assert torch.equal(staged_dw(z32, dy32, kb, dc, 3), exact)
+        torch.testing.assert_close(exact, ref, rtol=1e-12, atol=1e-12)
+
+
 def test_wrapper_rejects_other_devices_before_launching():
     z = torch.zeros(1, 2, 3, 8, device="meta")
     before = blocked_dw.launches

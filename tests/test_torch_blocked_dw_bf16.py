@@ -1,6 +1,6 @@
 """The bf16 dW kernel on wgmma (`csrc/blocked_dw.cu` dw_wgmma_kernel), on
 the CPU: its launch plan, the routing of bf16 shapes between it and the
-bf16 mma.sync kernel, and the kernel emulated in torch.  The emulation
+3xTF32 kernel on float32 copies, and the kernel emulated in torch.  The emulation
 keeps a block's ring of stages as the kernel's shared memory, NaN where
 nothing was written: TMA's boxes land there under the 128-byte (64-byte)
 swizzle with zeros out of bounds, the z tails are zeroed once, and each
@@ -215,13 +215,15 @@ def test_takes_wgmma_by_shape_alone():
 
 @pytest.mark.parametrize("wgmma", [True, False], ids=["wgmma", "mma_sync"])
 def test_blocked_dw_routes_by_shape_before_launching_and_never_falls_back(monkeypatch, wgmma):
-    """The wrapper picks the kernel from the shape before the launch; a
-    launch that fails raises, and the other kernel is not tried."""
+    """The wrapper picks the kernel from the shape before the launch: a bf16
+    pair the wgmma kernel does not take goes to the 3xTF32 kernel as
+    float32 copies; a launch that fails raises, and the other kernel is
+    not tried."""
     calls = []
 
     def launcher(name):
-        def launch(*args):
-            calls.append(name)
+        def launch(z, dy, *args):
+            calls.append((name, z.dtype, dy.dtype))
             raise RuntimeError(f"{name} launch failed")
         return launch
 
@@ -233,19 +235,24 @@ def test_blocked_dw_routes_by_shape_before_launching_and_never_falls_back(monkey
     dy = torch.empty(1, 3, 17, co, dtype=BF16, device="meta")
     with pytest.raises(RuntimeError, match="launch failed"):
         blocked_dw.blocked_dw(z, dy, 4, 2)
-    assert calls == ["wgmma" if wgmma else "mma_sync"]
+    if wgmma:
+        assert calls == [("wgmma", BF16, BF16)]
+    else:
+        assert calls == [("mma_sync", torch.float32, torch.float32)]
 
 
 def test_cpu_tensors_run_the_plain_version_in_both_functions():
+    """`blocked_dw` on CPU tensors runs the plain version, on a bf16 pair
+    of either route's shape (Ci, Co multiples of 8 or not), and launches
+    nothing; a meta tensor raises."""
     rng = np.random.default_rng(4)
-    z, dy = bf16_values(rng, (2, 7, 5, 24)), bf16_values(rng, (2, 7, 5, 16))
-    before = (blocked_dw.launches, blocked_dw.launches_bf16, blocked_dw.launches_bf16_mma_sync)
-    want = blocked_dw.blocked_dw_plain(z, dy, 4, 2)
-    assert torch.equal(blocked_dw.blocked_dw(z, dy, 4, 2), want)
-    assert torch.equal(blocked_dw.blocked_dw_mma_sync(z, dy, 4, 2), want)
-    assert (blocked_dw.launches, blocked_dw.launches_bf16, blocked_dw.launches_bf16_mma_sync) == before
+    before = (blocked_dw.launches, blocked_dw.launches_bf16)
+    for ci, co in ((24, 16), (20, 14)):
+        z, dy = bf16_values(rng, (2, 7, 5, ci)), bf16_values(rng, (2, 7, 5, co))
+        assert torch.equal(blocked_dw.blocked_dw(z, dy, 4, 2), blocked_dw.blocked_dw_plain(z, dy, 4, 2))
+    assert (blocked_dw.launches, blocked_dw.launches_bf16) == before
     with pytest.raises(ValueError, match="cpu or cuda"):
-        blocked_dw.blocked_dw_mma_sync(z.to("meta"), dy.to("meta"), 4, 2)
+        blocked_dw.blocked_dw(z.to("meta"), dy.to("meta"), 4, 2)
 
 
 # -- the staged image and the descriptors -------------------------------------------

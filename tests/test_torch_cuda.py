@@ -662,8 +662,8 @@ ONE_LAYER_CASES = [(1, 8, 8, None), (5, 10, 12, None), (13, 19, 32, None), (7, 2
 
 
 def _stack_counts():
-    """rced_stack's launch counts: 3xTF32, conv_layer_bf16, bf16 wgmma."""
-    return rced_stack.launches, rced_stack.launches_bf16, rced_stack.launches_bf16_wgmma
+    """rced_stack's launch counts: 3xTF32, bf16 wgmma."""
+    return rced_stack.launches, rced_stack.launches_bf16_wgmma
 
 
 def _bf16_packed(model, params, bn, device):
@@ -674,36 +674,18 @@ def _bf16_packed(model, params, bn, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ONE_LAYER_CASES, ids=lambda c: "_".join(map(str, c)))
 def test_kernel_bf16_one_layer_matches_plain_on_cuda(cuda_device, case):
-    """One layer: the kernel (the wgmma one, which every case takes) and
-    the plain bf16 mode round the same input and weights, products are
-    exact, sums float32 in another order: rtol 1e-4, atol 1e-5 *
-    max|plain|."""
+    """One layer: the wgmma kernel and the plain bf16 mode round the same
+    input and weights, products are exact, sums float32 in another order:
+    rtol 1e-4, atol 1e-5 * max|plain|."""
     model = one_layer_model(*case)
     packed = _bf16_packed(model, *numpy_params(model, 3, centred_bn=True), cuda_device)
-    assert rced_stack.takes_wgmma(packed)
     x = torch.rand(2, packed.c_in, 45, 129, generator=torch.Generator().manual_seed(4)).to(cuda_device)
     before = _stack_counts()
     got = rced_stack.stack_forward(packed, x)
     torch.cuda.synchronize()
-    assert _stack_counts() == (before[0], before[1], before[2] + 1)
+    assert _stack_counts() == (before[0], before[1] + 1)
     ref = rced_stack.stack_forward_plain(packed, x)
     assert_live(ref)
-    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * ref.abs().max().item())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ONE_LAYER_CASES, ids=lambda c: "_".join(map(str, c)))
-def test_kernel_bf16_mma_sync_one_layer_matches_plain_on_cuda(cuda_device, case):
-    """The same through conv_layer_bf16 (`stack_forward_mma_sync`), which
-    shapes the wgmma kernel does not take still reach."""
-    model = one_layer_model(*case)
-    packed = _bf16_packed(model, *numpy_params(model, 3, centred_bn=True), cuda_device)
-    x = torch.rand(2, packed.c_in, 45, 129, generator=torch.Generator().manual_seed(4)).to(cuda_device)
-    before = _stack_counts()
-    got = rced_stack.stack_forward_mma_sync(packed, x)
-    torch.cuda.synchronize()
-    assert _stack_counts() == (before[0], before[1] + 1, before[2])
-    ref = rced_stack.stack_forward_plain(packed, x)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * ref.abs().max().item())
 
 
@@ -730,62 +712,17 @@ def test_kernel_bf16_matches_plain_on_cuda(cuda_device, name, B, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,B,T", [(n, 2, 45) for n in NAMES] + [("FullyCNNV2", 1, 1999)])
-def test_kernel_bf16_wgmma_matches_mma_sync_on_cuda(cuda_device, name, B, T):
-    """The wgmma kernel against conv_layer_bf16 on the same pack: both
-    within a bf16 stack's tolerance of the plain bf16 mode and of each
-    other, one launch of each."""
-    params, bn = params_from_numpy(*numpy_params(name, 4, centred_bn=True), device=cuda_device)
-    packed = rced_stack.pack_inference_stack(get_model(name), params, bn, "bfloat16")
-    x = torch.rand(B, packed.c_in, T, 129, generator=torch.Generator().manual_seed(B + T)).to(cuda_device)
-    before = _stack_counts()
-    got = rced_stack.stack_forward(packed, x)
-    old = rced_stack.stack_forward_mma_sync(packed, x)
-    torch.cuda.synchronize()
-    assert _stack_counts() == (before[0], before[1] + 1, before[2] + 1)
-    ref = rced_stack.stack_forward_plain(packed, x)
-    assert_live(ref)
-    assert_bf16_stack_close(got, ref)
-    assert_bf16_stack_close(old, ref)
-    assert_bf16_stack_close(got, old)
-
-
-@pytest.mark.cuda
-def test_kernel_bf16_over_budget_takes_mma_sync_on_cuda(cuda_device):
-    """A model whose float32 rows do not fit two blocks an SM: stack_forward
-    launches conv_layer_bf16, within a bf16 stack's tolerance of plain."""
-    from fullycnnspeechenhancement_torch.models.rced import ConvSpec, ModelDef
-
-    enc = [ConvSpec("e0", 32, (8, 5))] + [ConvSpec(f"e{i}", 32, (1, 5)) for i in range(1, 8)]
-    dec = [ConvSpec(f"d{i}", 32, (1, 5), skip_from=f"e{7 - i}") for i in range(7)]
-    model = ModelDef("over_budget", tuple(enc + dec + [ConvSpec("last", 1, (1, 129), use_norm=False,
-                                                                    use_act=False)]))
-    packed = _bf16_packed(model, *numpy_params(model, 5, centred_bn=True), cuda_device)
-    assert not rced_stack.takes_wgmma(packed)
-    x = torch.rand(2, packed.c_in, 31, 129, generator=torch.Generator().manual_seed(6)).to(cuda_device)
-    before = _stack_counts()
-    got = rced_stack.stack_forward(packed, x)
-    torch.cuda.synchronize()
-    assert _stack_counts() == (before[0], before[1] + 1, before[2])
-    assert_bf16_stack_close(got, rced_stack.stack_forward_plain(packed, x))
-
-
-@pytest.mark.cuda
 def test_kernel_bf16_repeats_and_raises_instead_of_falling_back(cuda_device):
-    """Two launches agree bit for bit, in each bf16 kernel; a bf16 input,
-    or a float32 pack called in the bf16 mode, raises and launches
-    nothing."""
+    """Two launches agree bit for bit; a bf16 input, or a float32 pack
+    called in the bf16 mode, raises and launches nothing."""
     params, bn = params_from_numpy(*numpy_params("FullyCNNV2", 2, centred_bn=True), device=cuda_device)
     model = get_model("FullyCNNV2")
     packed = rced_stack.pack_inference_stack(model, params, bn, "bfloat16")
     x = torch.rand(3, packed.c_in, 97, 129, generator=torch.Generator().manual_seed(9)).to(cuda_device)
     assert torch.equal(rced_stack.stack_forward(packed, x), rced_stack.stack_forward(packed, x))
-    assert torch.equal(rced_stack.stack_forward_mma_sync(packed, x), rced_stack.stack_forward_mma_sync(packed, x))
     before = _stack_counts()
     with pytest.raises(ValueError, match="contiguous float32"):
         rced_stack.stack_forward(packed, x.to(torch.bfloat16))
-    with pytest.raises(ValueError, match="contiguous float32"):
-        rced_stack.stack_forward_mma_sync(packed, x.to(torch.bfloat16))
     mag = torch.rand(1, 20, 129, device=cuda_device)
     with pytest.raises(ValueError, match="packed for float32"):
         rced_stack.fused_inference_forward(model, params, bn, mag, packed=_packed("FullyCNNV2", 2, cuda_device),
@@ -806,8 +743,8 @@ def _dw_inputs_bf16(B, T, ci, co, device, seed=0, offset=0):
 
 
 # (B, T, Ci, Co, KB, dc, offset): V2's 14 layers; KB 1..8 with dc at both
-# ends; channels that are even but not multiples of 8 (4-byte copies) and
-# odd (each bf16 by its thread); pointers 4- and 2-byte aligned; V2's
+# ends; channels that are even but not multiples of 8 and odd, and
+# pointers 4- and 2-byte aligned (these four on the 3xTF32 kernel); V2's
 # encode_8 at 64 x 512
 DW_BF16_CASES = (
     [(3, 37, ci, co, 4, 2, 0) for ci, co in V2_DW_SHAPES]
@@ -823,7 +760,8 @@ DW_BF16_IDS = (
 
 
 def _dw_launches():
-    return blocked_dw.launches, blocked_dw.launches_bf16, blocked_dw.launches_bf16_mma_sync
+    """blocked_dw's launch counts: 3xTF32, bf16 wgmma."""
+    return blocked_dw.launches, blocked_dw.launches_bf16
 
 
 @pytest.mark.cuda
@@ -834,14 +772,14 @@ def test_blocked_dw_bf16_matches_plain_on_cuda(cuda_device, case):
     order of float32 sums over up to 557k terms: rtol 1e-4, atol 1e-4 *
     max|plain|, as the float32 instance.  Channels that are multiples of 8
     on 16-byte aligned pointers go to the wgmma kernel, the others to the
-    mma.sync one."""
+    3xTF32 kernel on float32 copies."""
     B, T, ci, co, kb, dc, offset = case
     z, dy = _dw_inputs_bf16(B, T, ci, co, cuda_device, offset=offset)
     wgmma = ci % 8 == 0 and co % 8 == 0 and offset % 8 == 0
     before = _dw_launches()
     got = blocked_dw.blocked_dw(z, dy, kb, dc)
     torch.cuda.synchronize()
-    assert _dw_launches() == (before[0], before[1] + wgmma, before[2] + (not wgmma))
+    assert _dw_launches() == (before[0] + (not wgmma), before[1] + wgmma)
     assert got.dtype == torch.float32
     ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
@@ -870,40 +808,46 @@ def test_blocked_dw_wgmma_matches_plain_on_cuda(cuda_device, case):
     before = _dw_launches()
     got = blocked_dw.blocked_dw(z, dy, kb, dc)
     torch.cuda.synchronize()
-    assert _dw_launches() == (before[0], before[1] + 1, before[2])
+    assert _dw_launches() == (before[0], before[1] + 1)
     ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
     assert torch.equal(blocked_dw.blocked_dw(z, dy, kb, dc), got)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", DW_BF16_CASES, ids=DW_BF16_IDS)
-def test_blocked_dw_mma_sync_matches_plain_on_cuda(cuda_device, case):
-    """The bf16 mma.sync kernel through `blocked_dw_mma_sync`, whatever the
-    shape: the same tolerance, a repeat bit for bit."""
-    B, T, ci, co, kb, dc, offset = case
-    z, dy = _dw_inputs_bf16(B, T, ci, co, cuda_device, offset=offset)
+def test_blocked_dw_bf16_odd_fb_runs_the_float32_kernel_on_cuda(cuda_device):
+    """A bf16 pair at an odd blocked_fb (V2's first inner layer at fb 7:
+    Ci 70, Co 84, NB 19) is not the wgmma kernel's: blocked_dw runs the
+    3xTF32 kernel on float32 copies, one float32 launch and no bf16 one,
+    within DW_TOL of the plain version and repeated bit for bit."""
+    from fullycnnspeechenhancement_torch.models.blocked import _block_index_map
+
+    fb, model = 7, get_model("FullyCNNV2")
+    spec = model.layers[1]
+    J, dc = _block_index_map(spec.kernel[1], fb)
+    kb, nb = J.shape[0], -(-129 // fb)
+    g = torch.Generator().manual_seed(7)
+    z = torch.randn(3, 37, nb, fb * model.layers[0].out_ch, generator=g).to(torch.bfloat16).to(cuda_device)
+    dy = torch.randn(3, 37, nb, fb * spec.out_ch, generator=g).to(torch.bfloat16).to(cuda_device)
+    assert not blocked_dw.takes_wgmma(z, dy, kb)
     before = _dw_launches()
-    got = blocked_dw.blocked_dw_mma_sync(z, dy, kb, dc)
+    got = blocked_dw.blocked_dw(z, dy, kb, dc)
     torch.cuda.synchronize()
-    assert _dw_launches() == (before[0], before[1], before[2] + 1)
+    assert _dw_launches() == (before[0] + 1, before[1])
     ref = blocked_dw.blocked_dw_plain(z, dy, kb, dc)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
-    assert torch.equal(blocked_dw.blocked_dw_mma_sync(z, dy, kb, dc), got)
+    assert torch.equal(blocked_dw.blocked_dw(z, dy, kb, dc), got)
 
 
 @pytest.mark.cuda
 def test_blocked_dw_bf16_raises_on_mixed_dtypes_on_cuda(cuda_device):
-    """A bf16 z with a float32 dy (and the reverse) raises in both
-    functions before any launch."""
+    """A bf16 z with a float32 dy (and the reverse) raises before any
+    launch."""
     z, dy = _dw_inputs_bf16(2, 9, 24, 16, cuda_device)
     before = _dw_launches()
-    for fn in (blocked_dw.blocked_dw, blocked_dw.blocked_dw_mma_sync):
-        for pair in ((z, dy.float()), (z.float(), dy)):
-            with pytest.raises(ValueError):
-                fn(*pair, 4, 2)
-    with pytest.raises(ValueError, match="bfloat16"):
-        blocked_dw.blocked_dw_mma_sync(z.float(), dy.float(), 4, 2)
+    for pair in ((z, dy.float()), (z.float(), dy)):
+        with pytest.raises(ValueError):
+            blocked_dw.blocked_dw(*pair, 4, 2)
     assert _dw_launches() == before
 
 

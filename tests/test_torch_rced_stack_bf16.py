@@ -367,43 +367,46 @@ def _over_budget_model():
 
 
 def test_routing_by_shape():
-    """Every V1/V2/V3 bf16 pack takes the wgmma kernel within two blocks an
-    SM; a model whose float32 rows do not fit takes conv_layer_bf16; float32
-    packs never take it.  On a tensor neither on the CPU nor on a card,
-    stack_forward routes to the kernel `takes_wgmma` names (both
-    launchers replaced by recorders here)."""
+    """Every V1/V2/V3 bf16 pack is the wgmma kernel's, within two blocks an
+    SM, and holds nothing of the 3xTF32 kernel's; float32 packs hold no
+    wgmma pack.  A bf16 pack of a model whose float32 rows do not fit two
+    blocks an SM raises, naming the limit; its float32 pack is made."""
     for name in NAMES:
         packed = _packed(name)
-        assert rs.takes_wgmma(packed), name
+        assert packed.wg is not None and packed.weights is None and packed.koffs is None, name
         plan = rs.wgmma_launch_plan(packed, 64 * 501)
         assert packed.wg.smem_bytes <= rs.WG_SMEM_BUDGET and plan.blocks_per_sm >= 2
         assert plan.threads == 288 and plan.warpgroups == 2
         assert plan.grid == plan.blocks_per_sm * rs.SM_COUNT and plan.grid * plan.frames_per_block >= 64 * 501
         assert rs.wgmma_launch_plan(packed, 5).grid == 5
         params, bn = params_from_numpy(*numpy_params(name, 1))
-        assert not rs.takes_wgmma(rs.pack_inference_stack(get_model(name), params, bn))
-    over = _packed(_over_budget_model())
-    assert over.wg is None and not rs.takes_wgmma(over)
-    layers = over.layers
+        assert rs.pack_inference_stack(get_model(name), params, bn).wg is None
+    model = _over_budget_model()
+    params, bn = params_from_numpy(*numpy_params(model, 1, centred_bn=True))
+    layers = rs.pack_inference_stack(model, params, bn).layers
     assert rs.wgmma_layout(layers, layers[0].cin) is None
+    with pytest.raises(ValueError, match=f"{rs.WG_SMEM_BUDGET} B of shared memory"):
+        _packed(model)
     assert _packed("FullyCNNV2").wg.smem_bytes == 106_736
 
 
 def test_stack_forward_routes_and_never_falls_back(monkeypatch):
-    """stack_forward takes `_launch_wgmma` for a pack that `takes_wgmma`
-    and `_launch_mma_sync` for any other; `stack_forward_mma_sync` always
-    the latter; neither reaches the plain version off the CPU."""
+    """stack_forward takes `_launch_wgmma` for a bf16 pack and
+    `_launch_mma_sync` for a float32 one, off the CPU (on a tensor neither
+    on the CPU nor on a card, both launchers replaced by recorders); only
+    a CPU tensor reaches the plain version."""
     calls = []
     monkeypatch.setattr(rs, "_launch_wgmma", lambda p, x: calls.append("wgmma"))
     monkeypatch.setattr(rs, "_launch_mma_sync", lambda p, x: calls.append("mma_sync"))
     monkeypatch.setattr(rs, "stack_forward_plain", lambda p, x: calls.append("plain"))
-    v2, over = _packed("FullyCNNV2"), _packed(_over_budget_model())
+    v2 = _packed("FullyCNNV2")
+    params, bn = params_from_numpy(*numpy_params("FullyCNNV2", 1))
+    v2_f32 = rs.pack_inference_stack(get_model("FullyCNNV2"), params, bn)
     x = torch.empty(1, v2.c_in, 3, BINS, device="meta")
     rs.stack_forward(v2, x)
-    rs.stack_forward_mma_sync(v2, x)
-    rs.stack_forward(over, torch.empty(1, over.c_in, 3, BINS, device="meta"))
+    rs.stack_forward(v2_f32, x)
     rs.stack_forward(v2, torch.empty(1, v2.c_in, 3, BINS))
-    assert calls == ["wgmma", "mma_sync", "mma_sync", "plain"]
+    assert calls == ["wgmma", "mma_sync", "plain"]
 
 
 def test_wgmma_padded_products_and_float32_rows():

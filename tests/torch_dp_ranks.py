@@ -286,7 +286,7 @@ def dp_step_on_device(rank, world, case, device, out_dir):
 
     disable_tf32()
     dp = DataParallel.current(world)
-    blocked_dw.launches = blocked_dw.launches_bf16 = blocked_dw.launches_bf16_mma_sync = 0
+    blocked_dw.launches = blocked_dw.launches_bf16 = 0
     out = run_step_case(dp, case, device)
-    out["launches"] = blocked_dw.launches + blocked_dw.launches_bf16 + blocked_dw.launches_bf16_mma_sync
+    out["launches"] = blocked_dw.launches + blocked_dw.launches_bf16
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
